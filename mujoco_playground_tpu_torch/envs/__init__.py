@@ -1,0 +1,8 @@
+"""Ackermann navigation environments."""
+from mujoco_playground_tpu_torch.envs.ackermann_env import (  # noqa: F401
+    AckermannEnv,
+    EnvConfig,
+    EnvState,
+)
+from mujoco_playground_tpu_torch.envs.make_env import \
+    make_ackermann_env  # noqa: F401
