@@ -27,12 +27,13 @@ struct LidarConst {
   float plane_half[2];
 };
 
-// One beam from origin o along direction d.
+// One beam from origin o along direction d, with the floor at plane_z
+// (L.plane_z, or one env's randomized floor height in kernel K1e).
 HD float lidar_beam(const LidarConst& L, const float* o, const float* d,
-                    float cutoff) {
+                    float cutoff, float plane_z) {
   // floor plane, finite extents (MuJoCo ray_plane)
   bool dz_ok = fabsf(d[2]) > LIDAR_PEPS;
-  float t_plane = (L.plane_z - o[2]) / (dz_ok ? d[2] : LIDAR_PEPS);
+  float t_plane = (plane_z - o[2]) / (dz_ok ? d[2] : LIDAR_PEPS);
   bool on_plane = (fabsf(o[0] + t_plane * d[0]) <= L.plane_half[0]) &&
                   (fabsf(o[1] + t_plane * d[1]) <= L.plane_half[1]);
   if (!(dz_ok && t_plane > 0.0f && on_plane)) t_plane = LIDAR_BIG;
@@ -66,7 +67,7 @@ HD float lidar_beam(const LidarConst& L, const float* o, const float* d,
 
 // The scan of site i given its body's world frame (pos bp, quat bq).
 HD float lidar_site(const LidarConst& L, int i, const float* bp,
-                    const float* bq) {
+                    const float* bq, float plane_z) {
   float o[3], q[4];
   qrot(bq, L.site_pos[i], o);
   for (int k = 0; k < 3; ++k) o[k] = bp[k] + o[k];
@@ -75,15 +76,16 @@ HD float lidar_site(const LidarConst& L, int i, const float* bp,
   float w = q[0], x = q[1], y = q[2], z = q[3];
   float d[3] = {2.0f * (x * z + w * y), 2.0f * (y * z - w * x),
                 1.0f - 2.0f * (x * x + y * y)};
-  return lidar_beam(L, o, d, L.cutoff[i]);
+  return lidar_beam(L, o, d, L.cutoff[i], plane_z);
 }
 
 // All NSITE readings given every body's frame: xpos [NBODY][3], xquat
-// [NBODY][4].  Reading i goes to out[i * stride].
+// [NBODY][4], and the floor height.  Reading i goes to out[i * stride].
 HD void lidar_scan(const LidarConst& L, const float (*xpos)[3],
-                   const float (*xquat)[4], float* out, long stride) {
+                   const float (*xquat)[4], float* out, long stride,
+                   float plane_z) {
   for (int i = 0; i < NSITE; ++i) {
     int b = L.site_body[i];
-    out[i * stride] = lidar_site(L, i, xpos[b], xquat[b]);
+    out[i * stride] = lidar_site(L, i, xpos[b], xquat[b], plane_z);
   }
 }

@@ -25,7 +25,7 @@ HD void k2_env(int b, long B, const float* xpos, const float* xquat,
     for (int k = 0; k < 3; ++k) bp[i][k] = xpos[(3 * i + k) * B + b];
     for (int k = 0; k < 4; ++k) bq[i][k] = xquat[(4 * i + k) * B + b];
   }
-  lidar_scan(c_lidar, bp, bq, out + b, B);
+  lidar_scan(c_lidar, bp, bq, out + b, B, c_lidar.plane_z);
 }
 
 #ifdef __CUDACC__

@@ -102,9 +102,50 @@ struct K1Const {
   float t_xpos[NBODY][3];
   float t_xquat[NBODY][4];
   float t_xy[2];
+  // K1e: per slot, the wheel of a wheel slot (-1 for a hull slot) and its
+  // body's invweight, so the domain-randomized build can recompute slot_mu
+  // and slot_diag from each env's wheel friction
+  int slot_wheel[NSLOT];
+  float slot_iw[NSLOT];
+  float plane_mu;
 };
 
 KCONST K1Const c_k1;
+
+// ------------------------------------------------- domain-randomized scalars
+
+// Row offsets of the per-env parameters of kernel K1e in its dr (DR_ROWS, B)
+// input: the JAX package's step_pallas.DR_LAYOUT, every field, in that order
+// and row-major (ops/step.py pack_dr_params).
+#define DR_BODY_MASS 0
+#define DR_BODY_INERTIA (DR_BODY_MASS + NBODY)
+#define DR_DOF_DAMPING (DR_BODY_INERTIA + 3 * NBODY)
+#define DR_DOF_ARMATURE (DR_DOF_DAMPING + NV)
+#define DR_DOF_FRICTIONLOSS (DR_DOF_ARMATURE + NV)
+#define DR_ACT_GAIN (DR_DOF_FRICTIONLOSS + NV)
+#define DR_ACT_BIAS (DR_ACT_GAIN + NU)
+#define DR_WHEEL_FRICTION (DR_ACT_BIAS + 3 * NU)
+#define DR_PLANE_Z (DR_WHEEL_FRICTION + NWHEEL)
+#define DR_ROWS (DR_PLANE_Z + 1)
+
+// Access to one env's randomized parameters.  DRP<false> is empty: the
+// non-randomized builds read K1Const and carry nothing.  DRP<true> points at
+// column b of dr; row r is read where it is used (coalesced across the
+// warp, cached in L1) rather than held in 85 registers.
+template <bool DR>
+struct DRP {};
+template <>
+struct DRP<true> {
+  const float* p;  // dr + b
+  long B;
+};
+
+// Parameter row `row` of the env under DR, else the model's value `base`.
+template <bool DR>
+HD float param(const DRP<DR>& d, int row, float base) {
+  if constexpr (DR) return d.p[row * d.B];
+  else return base;
+}
 
 // ---------------------------------------------------------------- kinematics
 
@@ -206,16 +247,20 @@ HD void motion_subspace(const float (*xpos)[3], const float (*xquat)[4],
 }
 
 // 6x6 spatial inertia of body b about anchor.
+template <bool DR>
 HD void spatial_inertia(int b, const float* xpos_b, const float* xquat_b,
-                        const float* anchor, float (*I6)[6]) {
+                        const float* anchor, float (*I6)[6],
+                        const DRP<DR>& dr) {
   const K1Const& C = c_k1;
   float iq[4], R[9], com[3], c[3];
   qmul(xquat_b, C.body_iquat[b], iq);
   qmat(iq, R);
-  const float* diag = C.body_inertia[b];
+  float diag[3];
+  for (int k = 0; k < 3; ++k)
+    diag[k] = param(dr, DR_BODY_INERTIA + 3 * b + k, C.body_inertia[b][k]);
   qrot(xquat_b, C.body_ipos[b], com);
   for (int k = 0; k < 3; ++k) c[k] = (xpos_b[k] + com[k]) - anchor[k];
-  float m = C.body_mass[b];
+  float m = param(dr, DR_BODY_MASS + b, C.body_mass[b]);
   float cx[3][3] = {{0.0f, -c[2], c[1]}, {c[2], 0.0f, -c[0]},
                     {-c[1], c[0], 0.0f}};
   for (int i = 0; i < 3; ++i)
@@ -249,9 +294,11 @@ HD void mat6_vec(const float (*A)[6], const float* x, float* y) {
 
 // Mass matrix by CRBA (sum_b J_b^T I_b J_b + armature) and bias forces by
 // RNEA, about anchor = the chassis origin.
+template <bool DR>
 NOINLINE void crba_bias(const float (*xpos)[3], const float (*xquat)[4],
                         const float* vel, const float (*S)[6],
-                        const float* anchor, float (*M)[NV], float* fbias) {
+                        const float* anchor, float (*M)[NV], float* fbias,
+                        DRP<DR> dr) {
   const K1Const& C = c_k1;
   float J[6][NV], IJ[6][NV], I6[6][6];
   float vbody[NBODY][6];
@@ -261,7 +308,7 @@ NOINLINE void crba_bias(const float (*xpos)[3], const float (*xquat)[4],
     for (int k = 0; k < 6; ++k) vbody[b][k] = 0.0f;
     if (!C.body_inert[b]) continue;
     body_jacobian(b, S, J);
-    spatial_inertia(b, xpos[b], xquat[b], anchor, I6);
+    spatial_inertia(b, xpos[b], xquat[b], anchor, I6, dr);
     for (int k = 0; k < 6; ++k)
       for (int v = 0; v < NV; ++v) {
         float s = 0.0f;
@@ -282,7 +329,7 @@ NOINLINE void crba_bias(const float (*xpos)[3], const float (*xquat)[4],
   }
   for (int v = 0; v < NV; ++v) {
     for (int w = 0; w < v; ++w) M[v][w] = M[w][v];
-    M[v][v] = M[v][v] + C.dof_armature[v];
+    M[v][v] = M[v][v] + param(dr, DR_DOF_ARMATURE + v, C.dof_armature[v]);
   }
 
   // velocity-product accelerations of the carried (non-free-translation)
@@ -307,7 +354,7 @@ NOINLINE void crba_bias(const float (*xpos)[3], const float (*xquat)[4],
   for (int b = 0; b < NBODY; ++b) {
     if (!C.body_inert[b]) continue;
     body_jacobian(b, S, J);
-    spatial_inertia(b, xpos[b], xquat[b], anchor, I6);
+    spatial_inertia(b, xpos[b], xquat[b], anchor, I6, dr);
     float ab[6], Iv[6], Ia[6], fc[6], t[3];
     for (int k = 0; k < 6; ++k) {
       float s = k < 3 ? 0.0f : -C.gravity[k - 3];
@@ -331,16 +378,20 @@ NOINLINE void crba_bias(const float (*xpos)[3], const float (*xquat)[4],
 }
 
 // ctrl -> generalized actuator force per dof.
+template <bool DR>
 HD void actuator_force(const float* q, const float* vel, const float* ctrl,
-                       float* out) {
+                       float* out, const DRP<DR>& dr) {
   const K1Const& C = c_k1;
   for (int v = 0; v < NV; ++v) out[v] = 0.0f;
   for (int u = 0; u < NU; ++u) {
     int d = C.act_dof[u];
     float c = fminf(fmaxf(ctrl[u], C.act_ctrlrange[u][0]),
                     C.act_ctrlrange[u][1]);
-    float f = C.act_gain[u] * c + C.act_bias[u][0] +
-              C.act_bias[u][1] * q[C.act_qadr[u]] + C.act_bias[u][2] * vel[d];
+    float gain = param(dr, DR_ACT_GAIN + u, C.act_gain[u]);
+    float b0 = param(dr, DR_ACT_BIAS + 3 * u, C.act_bias[u][0]);
+    float b1 = param(dr, DR_ACT_BIAS + 3 * u + 1, C.act_bias[u][1]);
+    float b2 = param(dr, DR_ACT_BIAS + 3 * u + 2, C.act_bias[u][2]);
+    float f = gain * c + b0 + b1 * q[C.act_qadr[u]] + b2 * vel[d];
     f = fminf(fmaxf(f, C.act_forcerange[u][0]), C.act_forcerange[u][1]);
     out[d] = out[d] + f;
   }
@@ -510,10 +561,11 @@ HD void cylinder_box(const float* c, const float* a, float r, float h, int k,
 // slots, then per wheel 4 box slots (2 nearest boxes x 2 disc ends), then
 // per hull 4 plane and 4 box quadrant slots.  Slots a scene cannot fill get
 // a positive distance, which leaves them inactive.
+template <bool DR>
 NOINLINE void collide(const float (*xpos)[3], const float (*xquat)[4],
-                      Slot* slots) {
+                      Slot* slots, DRP<DR> dr) {
   const K1Const& C = c_k1;
-  const float plane_z = C.lidar.plane_z;
+  const float plane_z = param(dr, DR_PLANE_Z, C.lidar.plane_z);
   for (int s = 0; s < NSLOT; ++s) slots[s].dist = 1.0f;
   for (int w = 0; w < NWHEEL; ++w) {
     int b = C.wheel_body[w];

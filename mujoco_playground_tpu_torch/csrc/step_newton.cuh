@@ -24,7 +24,9 @@ struct CRow {
   float rinv, mu;
 };
 
-HD void joint_rows(const float* q, const float* vel, JRow* rows) {
+template <bool DR>
+HD void joint_rows(const float* q, const float* vel, JRow* rows,
+                   const DRP<DR>& dr) {
   const K1Const& C = c_k1;
   for (int r = 0; r < NJROW; ++r) {
     const Imp& imp = C.jr_imp[r];
@@ -51,7 +53,7 @@ HD void joint_rows(const float* q, const float* vel, JRow* rows) {
     } else if (C.jr_kind[r] == ROW_FRICTION) {
       o.aref = (-imp.bref) * vel[d1];
       o.rinv = C.jr_rinv[r];
-      o.floss = C.jr_floss[r];
+      o.floss = param(dr, DR_DOF_FRICTIONLOSS + d1, C.jr_floss[r]);
       o.g1 = 1.0f;
     } else {  // joint limit, one side
       float side = C.jr_side[r];
@@ -67,9 +69,13 @@ HD void joint_rows(const float* q, const float* vel, JRow* rows) {
   }
 }
 
-// Rows of the active slots; returns their count.
+// Rows of the active slots; returns their count.  Under DR a wheel slot's
+// friction is max(the env's wheel friction, the plane's), and its diagonal
+// approximation iw 2 mu^2 (1 + mu^2) follows it.
+template <bool DR>
 HD int contact_rows(const Slot* slots, const float (*S)[6],
-                    const float* anchor, const float* vel, CRow* rows) {
+                    const float* anchor, const float* vel, CRow* rows,
+                    const DRP<DR>& dr) {
   const K1Const& C = c_k1;
   int n = 0;
   for (int s = 0; s < NSLOT; ++s) {
@@ -95,9 +101,17 @@ HD int contact_rows(const Slot* slots, const float (*S)[6],
     const Imp& imp = C.slot_imp[s];
     float d = impedance(imp, dist);
     float kc = d / imp.kden;
-    float mu = C.slot_mu[s];
+    float mu = C.slot_mu[s], diag = C.slot_diag[s];
+    if constexpr (DR) {
+      int w = C.slot_wheel[s];
+      if (w >= 0) {
+        mu = fmaxf(param(dr, DR_WHEEL_FRICTION + w, 0.0f), C.plane_mu);
+        diag = fmaxf(C.slot_iw[s] * 2.0f * (mu * mu) * (1.0f + mu * mu),
+                     1e-12f);
+      }
+    }
     o.mu = mu;
-    o.rinv = 1.0f / fmaxf((1.0f - d) / d * C.slot_diag[s], 1e-10f);
+    o.rinv = 1.0f / fmaxf((1.0f - d) / d * diag, 1e-10f);
     float vel4[4] = {vr[0] + mu * vr[1], vr[0] - mu * vr[1],
                      vr[0] + mu * vr[2], vr[0] - mu * vr[2]};
     for (int k = 0; k < 4; ++k) o.aref4[k] = (-imp.bref) * vel4[k] - kc * dist;

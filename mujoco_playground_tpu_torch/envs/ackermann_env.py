@@ -8,9 +8,13 @@ threshold), the 1000-step truncation and the branchless auto-reset.
 
 Everything is batched: the leaves of an :class:`EnvState` carry a leading
 env axis.  One env step is one launch of kernel K1 (``ops/step.py``) with
-the lidar, observation, reward and the auto-reset spawn scan fused in; the
-batched reset takes its observation from kernel K2 (``ops/lidar.py``).
-Reset sampling draws from the env's ``torch.Generator``.
+the lidar, observation, reward and the auto-reset spawn scan fused in (K1e
+under domain randomization, ``envs/domain_randomization.py``); the batched
+reset takes its observation from kernel K2 (``ops/lidar.py``).  With a
+compat contact manifold (``reference_flat_manifold`` /
+``reference_wheel_patch``) the step is the staged step through kernel K3,
+and the observation comes from K2.  Reset sampling draws from the env's
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -70,16 +74,7 @@ _UNPORTED = (
     ("spawn_heading_noise", "Queue 1, 'Solved-task and compat knobs'"),
     ("goal_compass", "Queue 1, 'Solved-task and compat knobs'"),
     ("geodesic_reward_scale", "Queue 1, 'Solved-task and compat knobs'"),
-    ("reference_flat_manifold", "Queue 1, 'Solved-task and compat knobs'"),
-    ("reference_wheel_patch", "Queue 1, 'Solved-task and compat knobs'"),
 )
-
-
-def _check_no_dr(models, base_model):
-    if models is not None or base_model is not None:
-        raise NotImplementedError(
-            "domain randomization is not ported yet (ROADMAP.md Queue 1, "
-            "'K1e: domain-randomized scalars')")
 
 
 def _check_ported(config: EnvConfig):
@@ -136,6 +131,17 @@ def _rows(t):
     return t.reshape(t.shape[0], -1).T.contiguous()
 
 
+def reward_terms(cfg, goal_distance, collision, terminated,
+                 prev_goal_distance):
+    """The env reward (the fused step computes the same formula in K1)."""
+    return (-goal_distance * 0.1
+            + torch.where(terminated, 100.0, 0.0)
+            + torch.where(collision, cfg.collision_penalty, 0.0)
+            - 0.01
+            + cfg.progress_reward_scale
+            * (prev_goal_distance - goal_distance))
+
+
 class AckermannEnv:
     """The compiled environment: holds the model, the settled spawn
     template and the reset generator."""
@@ -163,6 +169,8 @@ class AckermannEnv:
         self.model: Model = make_model(
             ackermann_robot_v2(), scene, dtype=dtype,
             solver_iterations=solver_iterations, ls_iterations=ls_iterations,
+            compat_flat_manifold=config.reference_flat_manifold,
+            compat_wheel_patch=config.reference_wheel_patch,
             device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -280,22 +288,28 @@ class AckermannEnv:
         """One env step of the batch.  ``_fresh_xy`` (from
         ``step_autoreset_batch``): each env's fresh spawn xy; the return
         is then ``(EnvState, fresh_lidar)`` with the spawn scan fused into
-        the same launch.  ``models``/``base_model`` (domain randomization)
-        raise: not ported yet."""
-        _check_no_dr(models, base_model)
+        the same launch (``fresh_lidar`` is None on the staged step, which
+        observes through K2 instead).  ``models``/``base_model``: domain
+        randomization, the randomized leaves with a leading env axis and
+        the unbatched base model (``engine.step_batch``)."""
         cfg = self.config
+        model = self.model if models is None else models
         actions = torch.clamp(actions.to(self.dtype), -1.0, 1.0)
         ctrl = bicycle_cmd_vel_to_controls(
             actions[..., 0] * cfg.max_linear_velocity,
             actions[..., 1] * cfg.max_angular_velocity)
         physics = states.physics.replace(ctrl=ctrl)
+        if engine.is_compat(self.model):
+            return self._step_staged(states, physics, model, base_model,
+                                     _fresh_xy)
         cols = [states.odom_ref.position[:, :2], states.goal,
                 states.prev_goal_distance[:, None]]
         if _fresh_xy is not None:
             cols.append(_fresh_xy)
         env_in = torch.cat(cols, dim=-1).to(self.dtype)
         physics, slab = engine.step_batch(
-            self.model, physics, with_env=self._env_statics(), env_in=env_in,
+            model, physics, base_model=base_model,
+            with_env=self._env_statics(), env_in=env_in,
             with_fresh=(self._fresh_statics() if _fresh_xy is not None
                         else None))
         ns = self.model.nsite
@@ -314,6 +328,28 @@ class AckermannEnv:
             return new, slab[:, ns + 12:]
         return new
 
+    def _step_staged(self, states, physics, model, base_model, fresh_xy):
+        """The env step without the fused step: the staged physics step,
+        then the observation, reward and termination through K2."""
+        cfg = self.config
+        physics = engine.step_batch(model, physics, base_model=base_model)
+        obs, metrics = self._observe_batch(physics, states.odom_ref,
+                                           states.goal)
+        goal_distance = metrics["goal_distance"]
+        collision = metrics["collision"]
+        terminated = goal_distance < cfg.goal_distance_threshold
+        reward = reward_terms(cfg, goal_distance, collision, terminated,
+                              states.prev_goal_distance).to(self.dtype)
+        steps = states.steps + 1
+        truncated = (steps >= cfg.max_episode_steps) & ~terminated
+        new = states.replace(
+            physics=physics, obs=obs, final_obs=obs, reward=reward,
+            steps=steps, terminated=terminated, truncated=truncated,
+            done=terminated | truncated, goal_distance=goal_distance,
+            collision=collision, min_lidar=metrics["min_lidar"],
+            prev_goal_distance=goal_distance)
+        return (new, None) if fresh_xy is not None else new
+
     def step_autoreset_batch(self, states: EnvState, actions,
                              fresh: Optional[EnvState] = None, models=None,
                              base_model=None) -> EnvState:
@@ -325,16 +361,26 @@ class AckermannEnv:
         ``fresh`` (a ``reset_core`` batch) replaces the sampling from the
         env's generator.  The fresh observation needs only the lidar at the
         spawn pose (odometry is zero and the heading is the template's),
-        which K1 scans in the same launch as the step.  ``models``/
-        ``base_model`` (domain randomization) raise: not ported yet."""
-        _check_no_dr(models, base_model)
+        which K1 scans in the same launch as the step; the staged step
+        observes the merged state through K2 instead.  ``models``/
+        ``base_model``: domain randomization, as in :meth:`step_batch`
+        (resets use the base model)."""
         B = states.steps.shape[0]
         if fresh is None:
             fresh = self.reset_core(B)
         st, fresh_lidar = self.step_batch(
-            states, actions, _fresh_xy=fresh.physics.xpos[:, 1, :2])
+            states, actions, models=models, base_model=base_model,
+            _fresh_xy=fresh.physics.xpos[:, 1, :2])
         done = st.done
         merged = _map2(lambda f, s: select_done(done, f, s), fresh, st)
+        keep = dict(reward=st.reward, terminated=st.terminated,
+                    truncated=st.truncated, done=st.done,
+                    final_obs=st.final_obs, goal_distance=st.goal_distance,
+                    collision=st.collision, min_lidar=st.min_lidar)
+        if fresh_lidar is None:
+            obs, _ = self._observe_batch(merged.physics, merged.odom_ref,
+                                         merged.goal)
+            return merged.replace(obs=obs, **keep)
         g = fresh.goal
         heading0 = self._heading0
         ang = torch.atan2(g[:, 1], g[:, 0]) - heading0
@@ -346,11 +392,7 @@ class AckermannEnv:
                        device=self.device),
             g, fresh.prev_goal_distance[:, None], ang[:, None]], dim=-1)
         return merged.replace(
-            obs=torch.where(done[:, None], fresh_obs, st.obs),
-            reward=st.reward, terminated=st.terminated,
-            truncated=st.truncated, done=st.done, final_obs=st.final_obs,
-            goal_distance=st.goal_distance, collision=st.collision,
-            min_lidar=st.min_lidar)
+            obs=torch.where(done[:, None], fresh_obs, st.obs), **keep)
 
     # ------------------------------------------------------------------- obs
     def _observe_batch(self, physics: State, ref: OdometryRef, goal):

@@ -37,6 +37,16 @@ def model_from_arrays(leaves: dict, device, dtype=torch.float32) -> Model:
     return Model(**statics, **arrays)
 
 
+def randomized_model_from_arrays(base: Model, leaves: dict) -> Model:
+    """The port's randomized ``Model``: ``base`` with the leaves a JAX
+    ``randomize_model`` result carries with a leading env axis, as numpy
+    by name (the other fields stay the base model's)."""
+    return dataclasses.replace(base, **{
+        name: torch.tensor(np.asarray(v), dtype=base.dtype,
+                           device=base.device)
+        for name, v in leaves.items()})
+
+
 def env_state_from_arrays(d: dict, device) -> EnvState:
     """A port ``EnvState`` batch from numpy leaves keyed by
     ``ENV_STATE_FIELDS`` (a JAX ``rng`` leaf, if present, is ignored)."""

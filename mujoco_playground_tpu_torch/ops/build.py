@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("step_kernel.cu", "lidar_kernel.cu")
+SOURCES = ("step_kernel.cu", "step_kernel_dr.cu", "lidar_kernel.cu",
+           "newton_kernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch twin of the Newton constraint solve inside the step kernel.
+"""The Newton constraint solve: the plain twin shared by kernels K1 and K3,
+and kernel K3 itself.
 
 Ports ``newton_body`` and ``_cholesky_solve_lanes`` of the JAX package's
 ``ops/newton_pallas.py`` onto "lane vectors": ``(B,)`` tensors holding one
@@ -7,10 +8,19 @@ The scalar helpers drop exact static zeros while the program is built, so
 the tree sparsity of the robot (a wheel's Jacobian touches ~8 of 12 dofs,
 a joint row 1-2) costs no arithmetic.  The CUDA step kernel
 (``csrc/step_kernel.cu``) computes the same function with dense loops.
+
+Kernel K3 (``newton_solve``, ``csrc/newton_kernel.cu``) is the standalone
+solve of the staged step (``newton_solve_pallas``): the whole system
+arrives from memory, batch-last, and its twin ``newton_solve_plain`` feeds
+``newton_body`` dense rows exactly as the JAX kernel builds them.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from mujoco_playground_tpu_torch.physics.constraint import EQ, FRICTION
 
 
 def _is0(x):
@@ -298,3 +308,117 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
                                 0.0, 2.0)
         avec = [avec[v] + alpha * delta[v] for v in range(nv)]
     return avec
+
+
+# --------------------------------------------------------------------------
+# kernel K3: the standalone Newton solve
+
+K3_MAX_NJ = 16   # joint rows csrc/newton_kernel.cu holds per env
+K3_MAX_NC = 72   # contact rows it holds per env (72 with the wheel patch)
+
+
+def newton_solve_plain(Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind,
+                       Jn, Jt1, Jt2, c_aref, c_R, c_mu, c_active,
+                       iterations, ls_iterations, warmstart=None):
+    """Plain twin of K3: the arrays as the JAX ``newton_solve_pallas``
+    takes them row-major (Mt (nv, nv, B), a_s (nv, B), G (nj, nv, B),
+    j_* (nj, B), Jn/Jt1/Jt2 (nc, nv, B), c_aref (nc, 4, B), c_* (nc, B)),
+    fed to ``newton_body`` as the JAX kernel builds its lists: every entry
+    a lane (nothing static to prune), all contact rows in one all-dof
+    group, ``Rinv = 1 / R``, and with a warm start the two-sided
+    mj_warmstart pick.  Returns qacc (nv, B)."""
+    nv = a_s.shape[0]
+    nc = Jn.shape[0]
+    M = [[Mt[v, w] for w in range(nv)] for v in range(nv)]
+    jrows = [dict(G=[G[r, v] for v in range(nv)], aref=j_aref[r],
+                  Rinv=1.0 / j_R[r], floss=j_floss[r], active=j_active[r],
+                  is_eq=int(k) == EQ, is_fric=int(k) == FRICTION)
+             for r, k in enumerate(j_kind)]
+    cgroups = [dict(dofs=tuple(range(nv)), Jn=[Jn[:, v] for v in range(nv)],
+                    Jt1=[Jt1[:, v] for v in range(nv)],
+                    Jt2=[Jt2[:, v] for v in range(nv)],
+                    aref4=[c_aref[:, k] for k in range(4)],
+                    Rinv=1.0 / c_R, mu=c_mu, active=c_active)] if nc else []
+    a0 = None if warmstart is None else [warmstart[v] for v in range(nv)]
+    return torch.stack(newton_body(nv, iterations, ls_iterations, M,
+                                   [a_s[v] for v in range(nv)], jrows,
+                                   cgroups, a0=a0, ws_compare=True))
+
+
+def launch_k3(lib, Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
+              Jt1, Jt2, c_aref, c_R, c_mu, c_active, iterations,
+              ls_iterations, warmstart, stream):
+    """Run K3 from the loaded library ``lib`` on ``stream``: checks the
+    inputs, allocates qacc (nv, B) and raises if the launch fails.  The
+    CUDA build takes device pointers and a CUDA stream; the host build of
+    the same source (tests) CPU pointers."""
+    nv, B = a_s.shape
+    nj, nc = G.shape[0], Jn.shape[0]
+    dims = lib.k3_nv
+    dims.restype = ctypes.c_int
+    if nv != dims():
+        raise ValueError(f"Newton kernel is compiled for nv={dims()}, the "
+                         f"system has {nv}")
+    if nj > K3_MAX_NJ or nc > K3_MAX_NC:
+        raise ValueError(f"Newton kernel holds at most {K3_MAX_NJ} joint and "
+                         f"{K3_MAX_NC} contact rows; got {nj} and {nc}")
+    dev = a_s.device
+    arrays = [("Mt", Mt, (nv, nv)), ("a_s", a_s, (nv,)), ("G", G, (nj, nv)),
+              ("j_aref", j_aref, (nj,)), ("j_R", j_R, (nj,)),
+              ("j_floss", j_floss, (nj,)), ("j_active", j_active, (nj,)),
+              ("Jn", Jn, (nc, nv)), ("Jt1", Jt1, (nc, nv)),
+              ("Jt2", Jt2, (nc, nv)), ("c_aref", c_aref, (nc, 4)),
+              ("c_R", c_R, (nc,)), ("c_mu", c_mu, (nc,)),
+              ("c_active", c_active, (nc,))]
+    if warmstart is not None:
+        arrays.append(("warmstart", warmstart, (nv,)))
+    for name, t, rows in arrays:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != rows + (B,):
+            raise ValueError(f"{name}: expected shape {rows + (B,)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    kinds = [int(k) for k in j_kind]
+    eq_mask = sum(1 << r for r, k in enumerate(kinds) if k == EQ)
+    fric_mask = sum(1 << r for r, k in enumerate(kinds) if k == FRICTION)
+    out = torch.empty((nv, B), dtype=torch.float32, device=dev)
+    fn = lib.k3_launch
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptr = [t.data_ptr() for _, t, _ in arrays[:14]]
+    ptr.append(warmstart.data_ptr() if warmstart is not None else None)
+    ptr.append(out.data_ptr())
+    err = fn(*ptr, B, nj, nc, int(iterations), int(ls_iterations), eq_mask,
+             fric_mask, stream)
+    if err != 0:
+        raise RuntimeError(f"Newton kernel launch failed: CUDA error {err}")
+    return out
+
+
+def newton_solve(Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
+                 Jt1, Jt2, c_aref, c_R, c_mu, c_active, iterations,
+                 ls_iterations, warmstart=None):
+    """K3: the batch-last Newton solve, arrays as ``newton_solve_plain``
+    takes them.  CPU tensors take the twin; CUDA tensors launch
+    ``csrc/newton_kernel.cu``.  ``launches`` counts kernel launches."""
+    args = (Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn, Jt1,
+            Jt2, c_aref, c_R, c_mu, c_active, iterations, ls_iterations)
+    if a_s.device.type == "cpu":
+        return newton_solve_plain(*args, warmstart=warmstart)
+    if a_s.device.type != "cuda":
+        raise ValueError(f"newton_solve: unsupported device {a_s.device}")
+    from mujoco_playground_tpu_torch.ops import build
+    with torch.cuda.device(a_s.device):
+        out = launch_k3(build.load("newton_kernel.cu"), *args, warmstart,
+                        torch.cuda.current_stream(a_s.device).cuda_stream)
+    newton_solve.launches += 1
+    return out
+
+
+newton_solve.launches = 0

@@ -8,7 +8,9 @@ umaze robot) -> joint and contact constraint rows -> Newton solve (warm
 started from the previous step's qacc) -> implicit-damping Euler -> FK of
 the new frames.  With ``env_statics`` it also scans the lidar on the new
 frames and assembles the observation, reward and termination rows; with
-``fresh`` it scans the lidar at each env's auto-reset spawn pose.
+``fresh`` it scans the lidar at each env's auto-reset spawn pose.  With
+``dr_params`` (kernel K1e) the nine ``DR_LAYOUT`` scalars come per env from
+a packed ``(DR_ROWS, B)`` input instead of the model.
 
 Layout is batch-last: every input and output is a ``(rows, B)`` float32
 tensor, one column per env.
@@ -16,7 +18,8 @@ tensor, one column per env.
 ``step_plain`` is the plain twin: the lane program of the JAX kernel on
 ``(B,)`` tensors, with the model's static zeros pruned while the program is
 built (``ops/newton.py``).  ``step_fused`` dispatches on the device: CPU
-tensors take the twin, CUDA tensors launch ``csrc/step_kernel.cu`` or raise.
+tensors take the twin, CUDA tensors launch ``csrc/step_kernel.cu`` (K1e:
+``csrc/step_kernel_dr.cu``) or raise.
 """
 from __future__ import annotations
 
@@ -34,14 +37,12 @@ from mujoco_playground_tpu_torch.ops.lidar import (LidarConst, check_rows,
                                                    fill, lidar_constants,
                                                    lidar_rows, lidar_statics)
 from mujoco_playground_tpu_torch.ops.newton import (_is0, cholesky_solve_lanes,
-                                                    newton_body, sadd,
+                                                    newton_body, sadd, smax,
                                                     smul, ssub)
+from mujoco_playground_tpu_torch.physics.collision import TOPK_W
+from mujoco_playground_tpu_torch.physics.constraint import CONE, EQ, FRICTION
 from mujoco_playground_tpu_torch.physics.model import JNT_FREE, JNT_HINGE
 
-# Constraint row kinds and collision constants: copies of the JAX
-# package's physics/constraint.py and physics/collision.py values.
-EQ, FRICTION, CONE = 0, 1, 2
-TOPK_W = 2   # nearest scene boxes tested per wheel
 INF = 1e30   # running-min sentinel of the nearest-box and deepest-vertex picks
 
 _DIMS = build.header_dims()
@@ -124,6 +125,90 @@ def static_model(model) -> StaticModel:
     if sm is None:
         sm = model.cache["static"] = StaticModel(model)
     return sm
+
+
+# --------------------------------------------------------------------------
+# domain-randomized scalars (kernel K1e)
+
+# The per-env scalar model parameters K1e takes as lane inputs: the set
+# envs.domain_randomization.randomize_model perturbs (a copy of the JAX
+# package's step_pallas.DR_LAYOUT).  name -> shape of its indices given the
+# static model; the packed input carries one (B,) row per scalar, in this
+# field order, indices row-major.  Geometry, solref/solimp and the
+# invweights are not randomizable here (the invweights stay the base
+# model's, as in the JAX kernel).
+DR_LAYOUT = (
+    ("body_mass", lambda sm: (sm.nbody,)),
+    ("body_inertia", lambda sm: (sm.nbody, 3)),
+    ("dof_damping", lambda sm: (sm.nv,)),
+    ("dof_armature", lambda sm: (sm.nv,)),
+    ("dof_frictionloss", lambda sm: (sm.nv,)),
+    ("actuator_gain", lambda sm: (sm.nu,)),
+    ("actuator_bias", lambda sm: (sm.nu, 3)),
+    ("wheel_friction", lambda sm: (len(sm.wheel_body),)),   # [w, 0] scalar
+    ("plane_z", lambda sm: ()),
+)
+DR_SUPPORTED = tuple(name for name, _ in DR_LAYOUT)
+
+
+def dr_param_rows(sm, dr_fields):
+    """Packed (row offset, shape) per randomized field, and the row count."""
+    offs, p = {}, 0
+    for name, shape_fn in DR_LAYOUT:
+        if name not in dr_fields:
+            continue
+        shape = shape_fn(sm)
+        offs[name] = (p, shape)
+        p += int(np.prod(shape)) if shape else 1
+    return offs, p
+
+
+def pack_dr_params(models, dr_fields):
+    """Randomized ``Model`` leaves (leading env axis) -> the ``(P, B)`` rows
+    K1e reads: ``DR_LAYOUT`` order, row-major, wheel friction's tangential
+    column only."""
+    rows = []
+    for name, _ in DR_LAYOUT:
+        if name not in dr_fields:
+            continue
+        leaf = getattr(models, name)
+        if name == "wheel_friction":
+            leaf = leaf[..., 0]
+        rows.append(leaf.reshape(leaf.shape[0], -1).T)
+    return torch.cat(rows, dim=0).contiguous()
+
+
+class DRView:
+    """Static-or-lane access to the ``DR_LAYOUT`` scalars (the JAX kernel's
+    ``_DRView``): ``val(name, *idx)`` is the env's ``(B,)`` lane of the
+    packed ``dr_params`` (every ``DR_SUPPORTED`` field, as K1e takes them),
+    or without them the model's value as a Python float, so the twin keeps
+    pruning static zeros."""
+
+    def __init__(self, sm: StaticModel, dr_params=None):
+        self.sm = sm
+        self.lanes = dr_params
+        self.offs = {}
+        if dr_params is not None:
+            self.offs, rows = dr_param_rows(sm, DR_SUPPORTED)
+            if dr_params.shape[0] != rows:
+                raise ValueError(f"dr_params: expected {rows} rows (every "
+                                 f"DR_SUPPORTED field), got "
+                                 f"{dr_params.shape[0]}")
+
+    def val(self, name, *idx):
+        if name in self.offs:
+            off, shape = self.offs[name]
+            flat = 0
+            for k, n in zip(idx, shape):
+                flat = flat * n + k
+            return self.lanes[off + flat]
+        v = np.asarray(getattr(self.sm, name))
+        for k in idx:
+            v = v[k]
+        # wheel_friction stores (nw, 3) coefficients; the scalar is the
+        # tangential mu in column 0
+        return float(v.flat[0]) if v.ndim else float(v)
 
 
 # --------------------------------------------------------------------------
@@ -280,15 +365,15 @@ def motion_subspace_lanes(sm: StaticModel, xpos, xquat, anchor):
     return S
 
 
-def spatial_inertia_lanes(sm: StaticModel, b, xpos_b, xquat_b, anchor):
+def spatial_inertia_lanes(sm: StaticModel, b, xpos_b, xquat_b, anchor, dr):
     """6x6 spatial inertia (list of rows) of body b about anchor."""
     R = qmat(qmul(xquat_b, sm.vec("body_iquat", b)))
-    diag = sm.vec("body_inertia", b)
+    diag = [dr.val("body_inertia", b, k) for k in range(3)]
     Iw = [[sadd(*[smul(smul(R[i][k], diag[k]), R[j][k]) for k in range(3)])
            for j in range(3)] for i in range(3)]
     com = v3add(xpos_b, qrot(xquat_b, sm.vec("body_ipos", b)))
     c = v3sub(com, anchor)
-    m = sm.f("body_mass", b)
+    m = dr.val("body_mass", b)
     cx = [[0.0, ssub(0.0, c[2]), c[1]],
           [c[2], 0.0, ssub(0.0, c[0])],
           [ssub(0.0, c[1]), c[0], 0.0]]
@@ -313,7 +398,7 @@ def _force_cross(v, f):
             + cross3(v[:3], f[3:]))
 
 
-def crba_bias_lanes(sm: StaticModel, xpos, xquat, vvec):
+def crba_bias_lanes(sm: StaticModel, xpos, xquat, vvec, dr):
     """(M nv x nv lists, fbias nv list, S, anchor): mass matrix by CRBA as
     sum_b J_b^T I_b J_b and bias forces by RNEA."""
     nv = sm.nv
@@ -324,7 +409,7 @@ def crba_bias_lanes(sm: StaticModel, xpos, xquat, vvec):
     for b in sm.bodies:
         Jb = [[S[v][k] if mask[b, v] else 0.0 for v in range(nv)]
               for k in range(6)]
-        I6 = spatial_inertia_lanes(sm, b, xpos[b], xquat[b], anchor)
+        I6 = spatial_inertia_lanes(sm, b, xpos[b], xquat[b], anchor, dr)
         IJ[b] = [[sadd(*[smul(I6[k][l], Jb[l][v]) for l in range(6)])
                   for v in range(nv)] for k in range(6)]
         J[b], Ibar[b] = Jb, I6
@@ -336,7 +421,7 @@ def crba_bias_lanes(sm: StaticModel, xpos, xquat, vvec):
                              for b in sm.bodies for k in range(6)])
             M[w][v] = M[v][w]
     for v in range(nv):
-        M[v][v] = sadd(M[v][v], sm.f("dof_armature", v))
+        M[v][v] = sadd(M[v][v], dr.val("dof_armature", v))
 
     vbody = {b: [sadd(*[smul(J[b][k][v], vvec[v]) for v in range(nv)])
                  for k in range(6)] for b in sm.bodies}
@@ -365,7 +450,7 @@ def crba_bias_lanes(sm: StaticModel, xpos, xquat, vvec):
     return M, fbias, S, anchor
 
 
-def actuator_lanes(sm: StaticModel, qvec, vvec, cvec):
+def actuator_lanes(sm: StaticModel, qvec, vvec, cvec, dr):
     """ctrl -> generalized force per dof (nv lanes / static zeros)."""
     out = [0.0] * sm.nv
     for u in range(sm.nu):
@@ -373,8 +458,8 @@ def actuator_lanes(sm: StaticModel, qvec, vvec, cvec):
         cr = sm.vec("actuator_ctrlrange", u)
         fr = sm.vec("actuator_forcerange", u)
         c = torch.clamp(cvec[u], cr[0], cr[1])
-        bias = sm.vec("actuator_bias", u)
-        force = sadd(smul(sm.f("actuator_gain", u), c), bias[0],
+        bias = [dr.val("actuator_bias", u, k) for k in range(3)]
+        force = sadd(smul(dr.val("actuator_gain", u), c), bias[0],
                      smul(bias[1], qvec[sm.dof_qposadr[d]]),
                      smul(bias[2], vvec[d]))
         if all(math.isfinite(x) for x in fr):
@@ -507,11 +592,14 @@ def nearest_boxes(sm: StaticModel, c, count, L):
     return [best, second][:count]
 
 
-def slot_statics(sm: StaticModel):
+def slot_statics(sm: StaticModel, dr=None):
     """Per contact slot, in slot order: (body, friction, solref, solimp,
-    invweight) — the static half of ``collide_lanes``."""
+    invweight, wheel index or -1) — the static half of ``collide_lanes``.
+    Under ``dr`` a wheel slot's friction is the env's lane."""
+    dr = dr or DRView(sm)
+
     def combine(w):
-        fric = max(float(sm.wheel_friction[w, 0]), float(sm.plane_friction[0]))
+        fric = smax(dr.val("wheel_friction", w), float(sm.plane_friction[0]))
         solref = [0.5 * (float(sm.wheel_solref[w, k])
                          + float(sm.plane_solref[k])) for k in range(2)]
         solimp = [0.5 * (float(sm.wheel_solimp[w, k])
@@ -522,27 +610,27 @@ def slot_statics(sm: StaticModel):
     nw = len(sm.wheel_body)
     for w in range(nw):
         b = sm.wheel_body[w]
-        out += [(b, *combine(w), float(sm.body_invweight0[b, 0]))] * 4
+        out += [(b, *combine(w), float(sm.body_invweight0[b, 0]), w)] * 4
     if sm.num_scene_boxes > 0:
         for w in range(nw):
             b = sm.wheel_body[w]
             n = 2 * min(TOPK_W, sm.num_scene_boxes)
-            out += [(b, *combine(w), float(sm.body_invweight0[b, 0]))] * n
+            out += [(b, *combine(w), float(sm.body_invweight0[b, 0]), w)] * n
     for i, b in enumerate(sm.chassis_box_body):
         hull = (b, max(float(sm.plane_friction[0]), 1.0),
                 [float(v) for v in sm.plane_solref],
                 [float(v) for v in sm.plane_solimp],
-                float(sm.body_invweight0[b, 0]))
+                float(sm.body_invweight0[b, 0]), -1)
         out += [hull] * (8 if sm.num_scene_boxes > 0 else 4)
     return out
 
 
-def collide_lanes(sm: StaticModel, xpos, xquat, L):
+def collide_lanes(sm: StaticModel, xpos, xquat, L, dr):
     """Contact slots in the order of the JAX package's ``collide``: per
     slot a dict of pos [3], frame [3][3] and dist."""
     slots = []
     nw = len(sm.wheel_body)
-    plane_z = sm.plane_z
+    plane_z = dr.val("plane_z")
     plane_frame = make_frame([0.0, 0.0, 1.0], L)
 
     def emit_plane(p):
@@ -630,7 +718,7 @@ def collide_lanes(sm: StaticModel, xpos, xquat, L):
 # --------------------------------------------------------------------------
 # constraint rows
 
-def joint_rows_lanes(sm: StaticModel, qvec, vvec):
+def joint_rows_lanes(sm: StaticModel, qvec, vvec, dr):
     """Joint rows (equality, dry friction, limits), as dicts."""
     rows = []
     for e, (d1, d2) in enumerate(sm.eq_dof_pairs):
@@ -657,7 +745,8 @@ def joint_rows_lanes(sm: StaticModel, qvec, vvec):
         rows.append(dict(
             dof1=d1, dof2=0, coef1=1.0, coef2=0.0, aref=aref,
             R=max((1.0 - d) / d * float(sm.dof_invweight0[d1]), 1e-10),
-            floss=sm.f("dof_frictionloss", d1), active=1.0, kind=FRICTION))
+            floss=dr.val("dof_frictionloss", d1), active=1.0,
+            kind=FRICTION))
     for d1 in sm.limited_dofs:
         jid = sm.dof_jnt[d1]
         qadr = sm.dof_qposadr[d1]
@@ -683,7 +772,7 @@ def contact_rows_lanes(sm: StaticModel, slots, statics, S, anchor, vvec):
     R, mu and the active flag."""
     nv = sm.nv
     out = []
-    for s, (body, mu_, solref, solimp, iw) in zip(slots, statics):
+    for s, (body, mu_, solref, solimp, iw, _) in zip(slots, statics):
         bmask = sm.ancestor_mask[body]
         arm = v3sub(s["pos"], anchor)
         Jn, Jt1, Jt2 = [0.0] * nv, [0.0] * nv, [0.0] * nv
@@ -699,7 +788,7 @@ def contact_rows_lanes(sm: StaticModel, slots, statics, S, anchor, vvec):
         d_imp = impedance(solimp, dist)
         bcoef, kden = ref_params(solref, solimp)
         kcoef = d_imp / kden
-        diag = max(iw * 2.0 * mu_ ** 2 * (1.0 + mu_ ** 2), 1e-12)
+        diag = smax(iw * 2.0 * mu_ ** 2 * (1.0 + mu_ ** 2), 1e-12)
         vn = sadd(*[smul(Jn[v], vvec[v]) for v in range(nv)])
         vt1 = sadd(*[smul(Jt1[v], vvec[v]) for v in range(nv)])
         vt2 = sadd(*[smul(Jt2[v], vvec[v]) for v in range(nv)])
@@ -717,10 +806,13 @@ def contact_rows_lanes(sm: StaticModel, slots, statics, S, anchor, vvec):
 # --------------------------------------------------------------------------
 # the plain twin
 
-def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False):
+def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False,
+                  dr_params=None):
     """One physics step on (rows, B) tensors.  Returns (qpos', qvel',
-    xpos (nbody*3, B), xquat (nbody*4, B), qacc (nv, B))."""
+    xpos (nbody*3, B), xquat (nbody*4, B), qacc (nv, B)).  ``dr_params``
+    (``DR_ROWS``, B): each env's randomized scalars (K1e)."""
     sm = static_model(model)
+    dr = DRView(sm, dr_params)
     nq, nv, nu = sm.nq, sm.nv, sm.nu
     B = qpos.shape[-1]
     L = _Lanes(B, qpos.dtype, qpos.device)
@@ -732,18 +824,19 @@ def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False):
 
     # FK + smooth dynamics
     xpos, xquat = fk_lanes(sm, qvec)
-    M, fbias, S, anchor = crba_bias_lanes(sm, xpos, xquat, vvec)
-    qfrc_act = actuator_lanes(sm, qvec, vvec, cvec)
+    M, fbias, S, anchor = crba_bias_lanes(sm, xpos, xquat, vvec, dr)
+    qfrc_act = actuator_lanes(sm, qvec, vvec, cvec, dr)
     qfrc_smooth = [ssub(ssub(qfrc_act[v],
-                             smul(sm.f("dof_damping", v), vvec[v])),
+                             smul(dr.val("dof_damping", v), vvec[v])),
                         fbias[v]) for v in range(nv)]
     qacc_smooth = cholesky_solve_lanes(M, [L(f) for f in qfrc_smooth], nv,
                                        order=sm.order)
 
     # collision + constraint rows
-    slots = collide_lanes(sm, xpos, xquat, L)
-    jrows = joint_rows_lanes(sm, qvec, vvec)
-    crows = contact_rows_lanes(sm, slots, slot_statics(sm), S, anchor, vvec)
+    slots = collide_lanes(sm, xpos, xquat, L, dr)
+    jrows = joint_rows_lanes(sm, qvec, vvec, dr)
+    crows = contact_rows_lanes(sm, slots, slot_statics(sm, dr), S, anchor,
+                               vvec)
 
     njrows = []
     for r in jrows:
@@ -784,7 +877,7 @@ def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False):
     MhD = [[M[v][w] for w in range(nv)] for v in range(nv)]
     rhs = [0.0] * nv
     for v in range(nv):
-        hd = h * sm.f("dof_damping", v)
+        hd = smul(h, dr.val("dof_damping", v))
         MhD[v][v] = sadd(MhD[v][v], hd)
         rhs[v] = sadd(
             sadd(*[smul(M[v][w], sadd(vvec[w], smul(h, qacc[w])))
@@ -812,22 +905,24 @@ def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False):
             torch.stack([L(q) for q in qacc]))
 
 
-def contact_activity(model, qpos):
+def contact_activity(model, qpos, dr_params=None):
     """(nslot, B) bool: which contact slots are in contact (dist < 0) at the
     frames of qpos (nq, B), in ``slot_statics`` order: the rows the Newton
     solve iterates over."""
     sm = static_model(model)
     L = _Lanes(qpos.shape[-1], qpos.dtype, qpos.device)
     xpos, xquat = fk_lanes(sm, [qpos[i] for i in range(sm.nq)])
-    slots = collide_lanes(sm, xpos, xquat, L)
+    slots = collide_lanes(sm, xpos, xquat, L, DRView(sm, dr_params))
     return torch.stack([L(s["dist"]) < 0 for s in slots])
 
 
-def env_plain(model, xpos, xquat, env_in, env_statics, fresh_statics=None):
+def env_plain(model, xpos, xquat, env_in, env_statics, fresh_statics=None,
+              dr_params=None):
     """The fused env rows on post-step frames xpos (nbody*3, B), xquat
     (nbody*4, B): [lidar (nsite), x, y, heading, dx, dy, dist, angle,
     reward, goal distance, min lidar, collision, terminated] and, with
     ``fresh_statics``, the lidar at each env's fresh spawn pose (nsite).
+    With ``dr_params`` both scans see each env's floor height.
 
     ``env_in`` (5 or 7, B) = [ref_x, ref_y, goal_x, goal_y, prev goal
     distance(, fresh_x, fresh_y)]; ``env_statics`` = (collision threshold,
@@ -836,6 +931,9 @@ def env_plain(model, xpos, xquat, env_in, env_statics, fresh_statics=None):
     B = xpos.shape[-1]
     L = _Lanes(B, xpos.dtype, xpos.device)
     lstat = lidar_statics(model)
+    if dr_params is not None:
+        plane_z = DRView(static_model(model), dr_params).val("plane_z")
+        lstat = lstat[:5] + (plane_z,) + lstat[6:]
     bodies = sorted(set(lstat[0]))
     bp = {b: [xpos[3 * b + k] for k in range(3)] for b in bodies}
     bq = {b: [xquat[4 * b + k] for k in range(4)] for b in bodies}
@@ -884,14 +982,17 @@ def env_plain(model, xpos, xquat, env_in, env_statics, fresh_statics=None):
 
 
 def step_plain(model, qpos, qvel, ctrl, warmstart, env_in=None,
-               env_statics=None, fresh_statics=None, ws_compare=False):
-    """Plain twin of K1 on (rows, B) tensors.  Returns (qpos', qvel', xpos,
-    xquat, qacc) and, with ``env_statics``, the env slab as a sixth."""
-    outs = physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare)
+               env_statics=None, fresh_statics=None, ws_compare=False,
+               dr_params=None):
+    """Plain twin of K1 (K1e with ``dr_params``) on (rows, B) tensors.
+    Returns (qpos', qvel', xpos, xquat, qacc) and, with ``env_statics``,
+    the env slab as a sixth."""
+    outs = physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare,
+                         dr_params)
     if env_statics is None:
         return outs
     return outs + (env_plain(model, outs[2], outs[3], env_in, env_statics,
-                             fresh_statics),)
+                             fresh_statics, dr_params),)
 
 
 # --------------------------------------------------------------------------
@@ -959,6 +1060,9 @@ class K1Const(ctypes.Structure):
         ("lidar", LidarConst),
         ("t_xpos", _F * 3 * NBODY), ("t_xquat", _F * 4 * NBODY),
         ("t_xy", _F * 2),
+        # K1e: per slot its wheel (-1: a hull slot) and invweight
+        ("slot_wheel", _I * NSLOT), ("slot_iw", _F * NSLOT),
+        ("plane_mu", _F),
     ]
 
 
@@ -1049,12 +1153,16 @@ def step_constants(model, fresh_statics=None) -> K1Const:
     # per hull: plane then box); slots a scene cannot fill stay inactive
     statics = slot_statics(sm)
     layout = _slot_layout(sm)
+    fill(c.slot_wheel, [-1] * NSLOT)
     for s, st_ in zip(layout, statics):
-        body, mu_, solref, solimp, iw = st_
+        body, mu_, solref, solimp, iw, wheel = st_
         c.slot_body[s] = body
         c.slot_mu[s] = mu_
         c.slot_diag[s] = max(iw * 2.0 * mu_ ** 2 * (1.0 + mu_ ** 2), 1e-12)
         c.slot_imp[s] = _imp(solref, solimp)
+        c.slot_wheel[s] = wheel
+        c.slot_iw[s] = iw
+    c.plane_mu = float(sm.plane_friction[0])
 
     fill(c.wheel_body, sm.wheel_body)
     fill(c.wheel_pos, sm.wheel_pos)
@@ -1104,56 +1212,71 @@ def _env_rows(model, fresh):
     return model.nsite + ENV_ROWS + (model.nsite if fresh else 0)
 
 
-# The (with_env, with_fresh, ws_compare) flag sets compiled into K1, and
-# their callers; K1 launches no other.
-K1_VARIANTS = {(True, True, False): "step_autoreset_batch",
-               (True, False, False): "AckermannEnv.step_batch",
-               (False, False, True): "the settle template"}
+# The (with_env, with_fresh, ws_compare, dr) flag sets compiled into K1
+# (dr: K1e, csrc/step_kernel_dr.cu), and their callers; K1 launches no
+# other.
+K1_VARIANTS = {(True, True, False, False): "step_autoreset_batch",
+               (True, False, False, False): "AckermannEnv.step_batch",
+               (False, False, True, False): "the settle template",
+               (True, True, False, True):
+                   "DomainRandomizedEnv.step_autoreset_batch",
+               (True, False, False, True): "DomainRandomizedEnv.step_batch"}
 
 
-def check_variant(env_statics, fresh_statics, ws_compare):
+def check_variant(env_statics, fresh_statics, ws_compare, dr_params=None):
     key = (env_statics is not None, fresh_statics is not None,
-           bool(ws_compare))
+           bool(ws_compare), dr_params is not None)
     if key not in K1_VARIANTS:
         raise ValueError(
             f"step kernel: no variant with_env={key[0]}, with_fresh={key[1]}"
-            f", ws_compare={key[2]}; compiled: {sorted(K1_VARIANTS)}")
+            f", ws_compare={key[2]}, dr={key[3]}; compiled: "
+            f"{sorted(K1_VARIANTS)}")
 
 
 def step_fused(model, qpos, qvel, ctrl, warmstart, env_in=None,
-               env_statics=None, fresh_statics=None, ws_compare=False):
-    """K1: one step of a batch, (rows, B) float32 in and out.
+               env_statics=None, fresh_statics=None, ws_compare=False,
+               dr_params=None):
+    """K1: one step of a batch, (rows, B) float32 in and out; K1e with
+    ``dr_params`` (``DR_ROWS``, B), each env's randomized scalars.
 
     Returns (qpos', qvel', xpos (nbody*3, B), xquat (nbody*4, B), qacc
     (nv, B)) and, with ``env_statics``, the env slab (nsite + 12 [+ nsite
     with ``fresh_statics``], B).  CPU tensors take ``step_plain``; CUDA
-    tensors launch ``csrc/step_kernel.cu``.  Only the flag sets of
-    ``K1_VARIANTS`` are accepted, on either device."""
-    check_variant(env_statics, fresh_statics, ws_compare)
+    tensors launch ``csrc/step_kernel.cu`` (K1e: ``step_kernel_dr.cu``).
+    Only the flag sets of ``K1_VARIANTS`` are accepted, on either device.
+    ``launches`` counts K1 launches, ``launches_dr`` K1e launches."""
+    check_variant(env_statics, fresh_statics, ws_compare, dr_params)
     if qpos.device.type == "cpu":
         return step_plain(model, qpos, qvel, ctrl, warmstart, env_in,
-                          env_statics, fresh_statics, ws_compare)
+                          env_statics, fresh_statics, ws_compare, dr_params)
     if qpos.device.type != "cuda":
         raise ValueError(f"step_fused: unsupported device {qpos.device}")
+    src = "step_kernel.cu" if dr_params is None else "step_kernel_dr.cu"
     with torch.cuda.device(qpos.device):
-        out = launch_k1(build.load("step_kernel.cu"), model, qpos, qvel,
-                        ctrl, warmstart, env_in, env_statics, fresh_statics,
-                        ws_compare,
-                        torch.cuda.current_stream(qpos.device).cuda_stream)
-    step_fused.launches += 1
+        out = launch_k1(build.load(src), model, qpos, qvel, ctrl, warmstart,
+                        env_in, env_statics, fresh_statics, ws_compare,
+                        torch.cuda.current_stream(qpos.device).cuda_stream,
+                        dr_params)
+    if dr_params is None:
+        step_fused.launches += 1
+    else:
+        step_fused.launches_dr += 1
     return out
 
 
 step_fused.launches = 0
+step_fused.launches_dr = 0
 
 
 def launch_k1(lib, model, qpos, qvel, ctrl, warmstart, env_in, env_statics,
-              fresh_statics, ws_compare, stream):
-    """Run K1 from the loaded library ``lib`` on ``stream``: checks the
-    inputs, allocates the outputs, uploads the model's constants and raises
-    if the launch fails.  The CUDA build takes device pointers and a CUDA
-    stream; the host build of the same source (tests) CPU pointers."""
-    check_variant(env_statics, fresh_statics, ws_compare)
+              fresh_statics, ws_compare, stream, dr_params=None):
+    """Run K1 (K1e with ``dr_params``, from the library of
+    ``step_kernel_dr.cu``) from the loaded library ``lib`` on ``stream``:
+    checks the inputs, allocates the outputs, uploads the model's constants
+    and raises if the launch fails.  The CUDA build takes device pointers
+    and a CUDA stream; the host build of the same source (tests) CPU
+    pointers."""
+    check_variant(env_statics, fresh_statics, ws_compare, dr_params)
     dev = qpos.device
     B = qpos.shape[-1]
     for name, t, rows in (("qpos", qpos, model.nq), ("qvel", qvel, model.nv),
@@ -1164,6 +1287,11 @@ def launch_k1(lib, model, qpos, qvel, ctrl, warmstart, env_in, env_statics,
     with_fresh = fresh_statics is not None
     if with_env:
         check_rows("env_in", env_in, 7 if with_fresh else 5, B, dev)
+    prefix = "k1" if dr_params is None else "k1e"
+    if dr_params is not None:
+        rows_fn = lib.k1e_dr_rows
+        rows_fn.restype = ctypes.c_int
+        check_rows("dr_params", dr_params, rows_fn(), B, dev)
     key = ("k1_const", fresh_statics)
     blob = model.cache.get(key)
     if blob is None:
@@ -1179,13 +1307,16 @@ def launch_k1(lib, model, qpos, qvel, ctrl, warmstart, env_in, env_statics,
     else:
         coll_th = goal_th = prog_scale = coll_pen = 0.0
         aliasing = ignores_nohit = False
-    build.upload_constants(lib, "k1", blob)
-    fn = lib.k1_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+    build.upload_constants(lib, prefix, blob)
+    fn = getattr(lib, f"{prefix}_launch")
+    nptr = 11 if dr_params is None else 12
+    fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ptr = [t.data_ptr() for t in (qpos, qvel, ctrl, warmstart)]
     ptr.append(env_in.data_ptr() if with_env else None)
+    if dr_params is not None:
+        ptr.append(dr_params.data_ptr())
     ptr += [t.data_ptr() for t in out[:5]]
     ptr.append(out[5].data_ptr() if with_env else None)
     err = fn(*ptr, B, int(with_env), int(with_fresh), int(ws_compare),

@@ -34,8 +34,8 @@ STATIC_FIELDS = (
     "actuator_names", "eq_dof_pairs", "limited_dofs", "friction_dofs",
     "sensor_kinds", "sensor_obj", "sensor_names", "wheel_body",
     "chassis_box_body", "chassis_hull_quadrants", "chassis_hull_bias",
-    "num_scene_boxes", "compat_flat_manifold", "compat_wheel_patch",
-    "solver_iterations", "ls_iterations")
+    "chassis_hull_faces", "num_scene_boxes", "compat_flat_manifold",
+    "compat_wheel_patch", "solver_iterations", "ls_iterations")
 
 # Tensor fields, in declaration order (the JAX Model's pytree leaves).
 ARRAY_FIELDS = (
@@ -94,7 +94,14 @@ class Model:
     chassis_hull_quadrants: Tuple[Tuple[Tuple[int, ...], ...], ...]
     # per-vertex depth bias toward xy-extreme vertices (breaks flat ties)
     chassis_hull_bias: Tuple[Tuple[float, ...], ...]
+    # hull triangles (index triples into chassis_hull_verts' unpadded
+    # leading rows) in MuJoCo's mesh-graph face order; the
+    # compat_flat_manifold support-face manifold reads them
+    chassis_hull_faces: Tuple[Tuple[Tuple[int, int, int], ...], ...]
     num_scene_boxes: int
+    # parity-compat manifolds (PARITY.md approximations 1-2): the support
+    # vertex's deepest incident hull face against the plane, and MuJoCo's
+    # 3 mid-tread points per wheel-box pair; both take the staged step
     compat_flat_manifold: bool
     compat_wheel_patch: bool
     solver_iterations: int
@@ -288,6 +295,17 @@ def _combine_inertials(inertials):
     return total_mass, com, quat, evals
 
 
+# the 12 triangles of a box's 8 corners (the vertex cloud of a box geom
+# without a hull: corner k has signs (x, y, z) from bits (4, 2, 1) of k)
+_BOX_TRIS = (
+    (0, 2, 6), (0, 6, 4),   # z = -1
+    (1, 7, 3), (1, 5, 7),   # z = +1
+    (0, 1, 5), (0, 5, 4),   # y = -1
+    (2, 3, 7), (2, 7, 6),   # y = +1
+    (0, 1, 3), (0, 3, 2),   # x = -1
+    (4, 5, 7), (4, 7, 6),   # x = +1
+)
+
 _HULL_SPREAD_EPS = 1e-3  # m of depth preference per m of xy extremity
 
 
@@ -333,10 +351,6 @@ def make_model(spec: st.ModelSpec,
                device=None) -> Model:
     """Compile a ModelSpec (+ static scene) into a Model on ``device``
     (``None`` = the CUDA card)."""
-    if compat_flat_manifold or compat_wheel_patch:
-        raise NotImplementedError(
-            "the compat contact manifolds are not ported yet (ROADMAP.md "
-            "Queue 1, 'Solved-task and compat knobs')")
     device = resolve_device(device)
     scene = scene if scene is not None else open_floor_scene()
     order, fused = _fuse_welded(spec)
@@ -364,7 +378,7 @@ def make_model(spec: st.ModelSpec,
     wheel_body, wheel_pos, wheel_axis, wheel_size = [], [], [], []
     wheel_friction, wheel_solref, wheel_solimp = [], [], []
     cbox_body, cbox_pos, cbox_quat, cbox_size = [], [], [], []
-    cbox_hull = []
+    cbox_hull, cbox_faces = [], []
 
     for name in order:
         i = body_index[name]
@@ -426,7 +440,10 @@ def make_model(spec: st.ModelSpec,
                 cbox_size.append(np.asarray(g.size))
                 if g.hull is not None:
                     cbox_hull.append(np.asarray(g.hull, dtype=np.float64))
+                    cbox_faces.append(tuple(tuple(int(v) for v in f)
+                                            for f in (g.hull_faces or ())))
                 else:
+                    cbox_faces.append(_BOX_TRIS)
                     # the box's 8 corners as the vertex cloud (body frame)
                     signs = np.array([[sx, sy, sz] for sx in (-1, 1)
                                       for sy in (-1, 1) for sz in (-1, 1)],
@@ -550,8 +567,10 @@ def make_model(spec: st.ModelSpec,
                                      for h in cbox_hull_padded),
         chassis_hull_bias=tuple(_hull_spread_bias(h)
                                 for h in cbox_hull_padded),
+        chassis_hull_faces=tuple(cbox_faces),
         num_scene_boxes=int(scene.num_boxes),
-        compat_flat_manifold=False, compat_wheel_patch=False,
+        compat_flat_manifold=bool(compat_flat_manifold),
+        compat_wheel_patch=bool(compat_wheel_patch),
         solver_iterations=solver_iterations, ls_iterations=ls_iterations)
 
     # invweight0 (MuJoCo's mj_setConst) from the dynamics at qpos0, in

@@ -178,8 +178,141 @@ def _steer_joint(name: str) -> JointSpec:
                      range=(-STEER_LIMIT, STEER_LIMIT),
                      damping=0.25, frictionloss=0.005)
 
+# Hull triangles (index triples into the hull tuples above), extracted from
+# MuJoCo's compiled mesh graph (mesh_graph face_globalid) for the same
+# meshes and mapped onto the baked vertex ordering.  Consumed only by the
+# ``reference_flat_manifold`` parity flag: MuJoCo's native convex collider
+# emits the SUPPORT FACE of the deepest vertex as the plane-contact
+# manifold (verified against 3.10 — the flipped flat plate's 3 contacts are
+# exactly one hull triangle), which is what makes a flat plate rock.
+_BASE_HULL_FACES = (  # 60 hull-graph triangles over 32 graph verts
+    (16, 33, 17),
+    (33, 16, 35),
+    (20, 19, 17),
+    (33, 20, 17),
+    (19, 20, 0),
+    (20, 1, 0),
+    (22, 16, 14),
+    (16, 22, 35),
+    (13, 22, 14),
+    (22, 13, 32),
+    (24, 5, 4),
+    (23, 24, 4),
+    (3, 2, 0),
+    (1, 3, 0),
+    (2, 3, 4),
+    (3, 23, 4),
+    (27, 8, 7),
+    (26, 27, 7),
+    (6, 25, 7),
+    (25, 26, 7),
+    (25, 6, 5),
+    (24, 25, 5),
+    (13, 31, 32),
+    (10, 31, 13),
+    (11, 16, 17),
+    (19, 11, 17),
+    (2, 11, 0),
+    (11, 19, 0),
+    (16, 11, 14),
+    (8, 11, 7),
+    (11, 13, 14),
+    (10, 11, 9),
+    (5, 11, 4),
+    (11, 2, 4),
+    (11, 6, 7),
+    (6, 11, 5),
+    (11, 10, 13),
+    (11, 12, 9),
+    (12, 30, 9),
+    (30, 12, 29),
+    (30, 10, 9),
+    (30, 31, 10),
+    (28, 33, 35),
+    (28, 3, 1),
+    (28, 20, 33),
+    (22, 28, 35),
+    (28, 27, 26),
+    (20, 28, 1),
+    (28, 22, 32),
+    (25, 28, 26),
+    (28, 24, 23),
+    (3, 28, 23),
+    (28, 30, 29),
+    (28, 25, 24),
+    (31, 28, 32),
+    (30, 28, 31),
+    (11, 28, 12),
+    (12, 28, 29),
+    (27, 28, 8),
+    (28, 11, 8),
+)
+_CEILING_HULL_FACES = (  # 60 hull-graph triangles over 32 graph verts
+    (15, 35, 16),
+    (35, 15, 34),
+    (20, 19, 16),
+    (35, 20, 16),
+    (19, 20, 0),
+    (20, 1, 0),
+    (22, 15, 14),
+    (15, 22, 34),
+    (13, 22, 14),
+    (22, 13, 32),
+    (24, 5, 4),
+    (23, 24, 4),
+    (3, 2, 0),
+    (1, 3, 0),
+    (2, 3, 4),
+    (3, 23, 4),
+    (27, 8, 7),
+    (26, 27, 7),
+    (6, 25, 7),
+    (25, 26, 7),
+    (25, 6, 5),
+    (24, 25, 5),
+    (13, 31, 32),
+    (12, 31, 13),
+    (10, 15, 16),
+    (19, 10, 16),
+    (2, 10, 0),
+    (10, 19, 0),
+    (15, 10, 14),
+    (8, 10, 7),
+    (10, 13, 14),
+    (12, 10, 9),
+    (5, 10, 4),
+    (10, 2, 4),
+    (10, 6, 7),
+    (6, 10, 5),
+    (10, 12, 13),
+    (10, 11, 9),
+    (11, 30, 9),
+    (30, 11, 29),
+    (30, 12, 9),
+    (30, 31, 12),
+    (28, 35, 34),
+    (28, 3, 1),
+    (28, 20, 35),
+    (22, 28, 34),
+    (28, 27, 26),
+    (20, 28, 1),
+    (28, 22, 32),
+    (25, 28, 26),
+    (28, 24, 23),
+    (3, 28, 23),
+    (28, 30, 29),
+    (28, 25, 24),
+    (31, 28, 32),
+    (30, 28, 31),
+    (10, 28, 11),
+    (11, 28, 29),
+    (27, 28, 8),
+    (28, 10, 8),
+)
+
+
 def _mesh_proxy_geom(name: str, inertial: InertialSpec, aabb,
-                     hull=None) -> GeomSpec:
+                     hull=None, hull_faces=None) -> GeomSpec:
     """Box-typed proxy for a chassis mesh carrying its convex-hull vertices.
 
     MuJoCo re-centers mesh geoms at their inertial frame; the proxy box is the
@@ -199,7 +332,7 @@ def _mesh_proxy_geom(name: str, inertial: InertialSpec, aabb,
     return GeomSpec(
         name=name, type="box", size=tuple(half), pos=tuple(pos),
         quat=inertial.quat, contype=2, conaffinity=1, group=2,
-        rgba=(0.2, 0.8, 0.8, 1.0), hull=hull,
+        rgba=(0.2, 0.8, 0.8, 1.0), hull=hull, hull_faces=hull_faces,
     )
 
 
@@ -239,11 +372,13 @@ def ackermann_robot_v2(floor: bool = True) -> ModelSpec:
     spec.bodies.append(BodySpec(
         name="base", parent="chassis", inertial=_BASE_INERTIAL,
         geoms=[_mesh_proxy_geom("chassis", _BASE_INERTIAL, _BASE_AABB,
-                                hull=_BASE_HULL)]))
+                                hull=_BASE_HULL,
+                                hull_faces=_BASE_HULL_FACES)]))
     spec.bodies.append(BodySpec(
         name="ceiling", parent="chassis", inertial=_CEILING_INERTIAL,
         geoms=[_mesh_proxy_geom("ceiling", _CEILING_INERTIAL, _CEILING_AABB,
-                                hull=_CEILING_HULL)]))
+                                hull=_CEILING_HULL,
+                                hull_faces=_CEILING_HULL_FACES)]))
 
     wheel_inertial = InertialSpec(mass=0.05, diaginertia=(1e-4, 1e-4, 1e-4))
     spec.bodies.append(BodySpec(

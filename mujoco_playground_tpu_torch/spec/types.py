@@ -70,6 +70,9 @@ class GeomSpec:
     # box used for MJCF export and raycast OBB tests).  None => derive the
     # cloud from the box's 8 corners.
     hull: Optional[Tuple[Tuple[float, float, float], ...]] = None
+    # Hull triangles (index triples into ``hull``) in MuJoCo's mesh-graph
+    # face order, for the ``compat_flat_manifold`` support-face manifold.
+    hull_faces: Optional[Tuple[Tuple[int, int, int], ...]] = None
 
 
 @dataclasses.dataclass

@@ -34,6 +34,17 @@ def test_port_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_every_module_of_the_port_is_checked():
+    """The import check walks the package: the modules of each slice are in
+    it (the staged step, domain randomization, the Newton kernel)."""
+    mods = set(_modules())
+    for m in ("envs.domain_randomization", "physics.batchlast",
+              "physics.collision", "physics.constraint",
+              "physics.linalg_small", "physics.solver_batched",
+              "ops.newton", "ops.step", "ops.lidar", "interop"):
+        assert f"mujoco_playground_tpu_torch.{m}" in mods, m
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b"
                          r"|mujoco_playground_tpu\.\w", re.M)
