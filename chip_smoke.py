@@ -69,11 +69,13 @@ K2_TOL = (5e-6, 0.0)
 # in different orders (the kernel row by row over the rows in contact, the
 # twin over all rows at once), and the solve mixes every dof of an env
 K3_TOL = (1e-2, 3e-4)
-# K1 is held strictly at every shape.  K1e and K3 at the paths' B=16384
-# shapes: a few envs may sit where the step itself is ill-conditioned, so
-# that a rounding difference flips a contact or friction row between
-# active and inactive and the kernel and its float32 twin land on
-# different sides (PERF.md).  Such an env may exceed the tolerance only if
+# K1 is held strictly on reset states and at B=16384.  On the wall-contact
+# states, and K1e and K3 at the paths' B=16384 shapes, a few envs may sit
+# where the step itself is ill-conditioned, so that a rounding difference
+# flips a contact or friction row between active and inactive and the
+# kernel and its float32 twin land on different sides (wall states: about
+# one env step in 1,000-3,000, PERF.md).  Such an env may exceed the
+# tolerance only if
 # the twins show it ill-conditioned without the kernel: fed the same
 # inputs with qpos, qvel and the warm start (K3: the smooth acceleration,
 # the reference accelerations and the warm start) each moved one float32
@@ -256,8 +258,9 @@ def check_k3(label, got, want, failures, witness=None):
                          [got], [want], failures, witness)
 
 
-def k1e_witness(args, dr_params, gen):
-    """set_aside's witness for K1e's check on ``args`` (step_plain's)."""
+def k1_witness(args, gen, dr_params=None):
+    """set_aside's witness for K1's (with ``dr_params`` K1e's) check on
+    ``args`` (step_plain's)."""
     from mujoco_playground_tpu_torch.ops import step as k1
     model, q, v, ctrl, ws, env_in, statics, fresh, ws_compare = args
 
@@ -269,7 +272,8 @@ def k1e_witness(args, dr_params, gen):
             return k1_views(k1.step_plain(
                 model, sub(q, True), sub(v, True), sub(ctrl), sub(ws, True),
                 sub(env_in), statics, fresh, ws_compare,
-                dr_params=sub(dr_params)), model)
+                dr_params=None if dr_params is None else sub(dr_params)),
+                model)
         return ill_conditioned(run, K1_TOLS, gen, got)
     return witness
 
@@ -293,6 +297,15 @@ def k3_witness(args, ws, gen):
     return witness
 
 
+def check_repeat(label, first, second, failures):
+    """Two launches on the same inputs must give the same bits."""
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"check {label} B={B_MAIN}: a second launch on the same inputs is "
+          f"bitwise equal: {same}")
+    if not same:
+        failures.append(f"{label} repeat")
+
+
 def check_k2(label, got, want, failures):
     err, _, excess = max_err(got, want, *K2_TOL)
     print(f"check K2 {label}: max |err| {err:.3e} (tol {K2_TOL[0]:g})")
@@ -311,6 +324,29 @@ def ptxas_report(logs):
                 fn = line.split("'")[1] if "'" in line else line.split()[-1]
             if "bytes stack frame" in line or "Used" in line:
                 rows.append(f"{src} {fn}: {line.split(':', 1)[-1].strip()}")
+    return rows
+
+
+def k1_occupancy_report(build):
+    """Per K1/K1e flag set: shared bytes per block and resident warps per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    from mujoco_playground_tpu_torch.ops import step as k1
+    rows = []
+    for (with_env, with_fresh, ws_compare, dr) in k1.K1_VARIANTS:
+        src = "step_kernel_dr.cu" if dr else "step_kernel.cu"
+        fn = getattr(build.load(src),
+                     "k1e_occupancy" if dr else "k1_occupancy")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 3)()
+        err = fn(int(with_env), int(with_fresh), int(ws_compare), out)
+        if err != 0:
+            fail(f"{src} occupancy query: CUDA error {err}")
+        rows.append(f"{src} <{int(with_env)},{int(with_fresh)},"
+                    f"{int(ws_compare)}{',1' if dr else ''}>: {out[0]} B "
+                    f"shared per block of {out[1]} threads, {out[2]} blocks"
+                    f" = {out[2] * out[1] // 32} warps per SM")
     return rows
 
 
@@ -430,37 +466,6 @@ def k3_ops(nv, jg, na, iterations, ls_iterations, warm):
     return ws + iterations * it
 
 
-def wall_poses(env, B, gen):
-    """B umaze states next to walls, at rest controls: the settled template
-    moved to a random free cell, pushed 0.37-0.43 m from the cell's center
-    toward one of its four sides (walls bound most of them), at a random
-    yaw, so wheels and hulls touch wall boxes at depths up to a few cm."""
-    from mujoco_playground_tpu_torch.physics import batchlast
-    from mujoco_playground_tpu_torch.physics import mathutil as mu
-    dev = env.device
-    tpl = env._template
-    cells = env._free_cells
-    ci = torch.randint(0, cells.shape[0], (B,), generator=gen, device=dev)
-    side = torch.randint(0, 4, (B,), generator=gen, device=dev)
-    dirs = torch.tensor([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
-                        device=dev)[side]
-    u = torch.rand((B, 3), generator=gen, device=dev)
-    xy = cells[ci] + dirs * (0.37 + 0.06 * u[:, :1])
-    yaw = (u[:, 1] * 2 - 1) * math.pi
-    qz = torch.stack([torch.cos(yaw / 2), torch.zeros_like(yaw),
-                      torch.zeros_like(yaw), torch.sin(yaw / 2)], -1)
-    qpos = tpl.qpos.expand(B, -1).clone()
-    qpos[:, :2] = xy
-    qpos[:, 3:7] = mu.quat_mul(qz, tpl.qpos[3:7].expand(B, 4))
-    qvel = 0.05 * (torch.rand((B, env.model.nv), generator=gen, device=dev)
-                   * 2 - 1)
-    xpos, xquat = batchlast.fk_bl(env.model, qpos.T)
-    return env.reset_core(B).physics.replace(
-        qpos=qpos, qvel=qvel, xpos=torch.stack([x.T for x in xpos], 1),
-        xquat=torch.stack([x.T for x in xquat], 1),
-        ctrl=torch.zeros((B, env.model.nu), device=dev))
-
-
 def reset_counts():
     from mujoco_playground_tpu_torch.ops import lidar as k2
     from mujoco_playground_tpu_torch.ops import newton as k3
@@ -517,6 +522,7 @@ def main():
                                                   RandomizationConfig,
                                                   make_ackermann_env,
                                                   randomize_model)
+    from mujoco_playground_tpu_torch.envs.poses import wall_poses
     from mujoco_playground_tpu_torch.ops import build
     from mujoco_playground_tpu_torch.ops import lidar as k2
     from mujoco_playground_tpu_torch.ops import newton as k3
@@ -533,9 +539,12 @@ def main():
     t = time.perf_counter()
     logs = build.build()
     print(f"build: {time.perf_counter() - t:.1f} s for {', '.join(logs)} "
-          f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+          f"(nvcc {' '.join(build.NVCC_FLAGS)}; per source "
+          f"{build.SOURCE_FLAGS})")
     for row in ptxas_report(logs):
         print(f"  ptxas {row}")
+    for row in k1_occupancy_report(build):
+        print(f"  occupancy {row}")
     print(f"card: {card}")
 
     env = make_ackermann_env("maze", "umaze", solver_iterations=4,
@@ -582,6 +591,24 @@ def main():
             torch.cuda.synchronize()
             check_k1(f"{label} step {step}", got, want, model, failures)
             q, v, ws = want[0], want[1], want[4]
+    # K1 on states against the maze walls, the many-row workspace cases that
+    # reset states never reach: the auto-reset step, 3 chained steps; an env
+    # over tolerance must be shown ill-conditioned (set_aside)
+    wgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    wall = wall_poses(env, B_CHECK, wgen)
+    q, v, ws = rows(wall.qpos), rows(wall.qvel), rows(wall.qacc_warmstart)
+    active = k1.contact_activity(model, q).sum(0).float()
+    print(f"K1 wall contacts B={B_CHECK}: {float(active.mean()):.2f} active "
+          f"contact rows per env (max {int(active.max())})")
+    for step in range(CHECK_STEPS):
+        ctrl = torch.rand((3, B_CHECK), generator=wgen, device=dev) * 2 - 1
+        args = (model, q, v, ctrl, ws, env_in, statics, fresh, False)
+        got = k1.step_fused(*args)
+        want = k1.step_plain(*args)
+        torch.cuda.synchronize()
+        check_k1(f"wall B={B_CHECK} step {step}", got, want, model, failures,
+                 k1_witness(args, wgen))
+        q, v, ws = want[0], want[1], want[4]
     xp, xq = rows(st.physics.xpos), rows(st.physics.xquat)
     check_k2(f"B={B_CHECK}", k2.lidar(model, xp, xq),
              k2.lidar_plain(model, xp, xq), failures)
@@ -764,6 +791,7 @@ def main():
     exact = k1.step_plain(model, *(t.double() for t in args[1:6]),
                           *args[6:])
     k1_err = check_k1(f"main B={B_MAIN}", got, want, model, failures)
+    check_repeat("K1", got, k1.step_fused(*args), failures)
     k2_err = check_k2(f"B={B_MAIN}", k2.lidar(model, xp, xq),
                       k2.lidar_plain(model, xp, xq), failures)
     dph = dstates.physics
@@ -773,10 +801,14 @@ def main():
                          -1).T.contiguous()
     dargs = (model, rows(dph.qpos), rows(dph.qvel), ctrl,
              rows(dph.qacc_warmstart), d_env_in, statics, fresh, False)
+    got_e = k1.step_fused(*dargs, dr_params=dparams)
     k1e_err = check_k1(
-        f"e main B={B_MAIN}", k1.step_fused(*dargs, dr_params=dparams),
+        f"e main B={B_MAIN}", got_e,
         k1.step_plain(*dargs, dr_params=dparams), model, failures,
-        k1e_witness(dargs, dparams, gen))
+        k1_witness(dargs, gen, dparams))
+    check_repeat("K1e", got_e, k1.step_fused(*dargs, dr_params=dparams),
+                 failures)
+    del got_e
     cph = cstates.physics
     sys_args = engine.newton_inputs(cenv.model, cph)
     sys_ws = cph.qacc_warmstart.T.contiguous()

@@ -17,4 +17,6 @@
 #define NFRIC 6       // dry-friction rows
 #define NJROW 11      // joint rows: NEQ + NFRIC + 2 limited dofs x 2 sides
 #define NSLOT 48      // contact slots: 4x4 wheel-plane, 4x4 wheel-box, 2x8 hull
+#define DOF_JROWS 4   // joint rows that touch one dof, at most
+#define NBDOF 8       // dofs that move one body, at most
 #define MAX_BOXES 64  // scene boxes the constant blocks hold

@@ -32,11 +32,23 @@ int k1_launch(const float* qpos, const float* qvel, const float* ctrl,
   int flags3 = (with_env ? 4 : 0) | (with_fresh ? 2 : 0) | (ws_compare ? 1 : 0);
   if (flags3 != 6 && flags3 != 4 && flags3 != 1) return K1_BAD_FLAGS;
   if (B > 0) {
-    if (flags3 == 6) k1_run<true, true, false, false>(A, stream);
-    else if (flags3 == 4) k1_run<true, false, false, false>(A, stream);
-    else k1_run<false, false, true, false>(A, stream);
+    int err = flags3 == 6   ? k1_run<true, true, false, false>(A, stream)
+              : flags3 == 4 ? k1_run<true, false, false, false>(A, stream)
+                            : k1_run<false, false, true, false>(A, stream);
+    if (err != 0) return err;
   }
   return K1_LAUNCH_ERROR();
+}
+
+// Of the compiled flag set's kernel: out[0] shared bytes per block, out[1]
+// threads per block, out[2] resident blocks per SM (0 in the host build).
+// Returns the CUDA error, 0 on success.
+int k1_occupancy(int with_env, int with_fresh, int ws_compare, int* out) {
+  int flags3 = (with_env ? 4 : 0) | (with_fresh ? 2 : 0) | (ws_compare ? 1 : 0);
+  if (flags3 == 6) return k1_occupancy_t<true, true, false, false>(out);
+  if (flags3 == 4) return k1_occupancy_t<true, false, false, false>(out);
+  if (flags3 == 1) return k1_occupancy_t<false, false, true, false>(out);
+  return K1_BAD_FLAGS;
 }
 
 }  // extern "C"

@@ -42,10 +42,19 @@ int k1e_launch(const float* qpos, const float* qvel, const float* ctrl,
   int flags3 = (with_env ? 4 : 0) | (with_fresh ? 2 : 0) | (ws_compare ? 1 : 0);
   if ((flags3 != 6 && flags3 != 4) || dr == nullptr) return K1_BAD_FLAGS;
   if (B > 0) {
-    if (flags3 == 6) k1_run<true, true, false, true>(A, stream);
-    else k1_run<true, false, false, true>(A, stream);
+    int err = flags3 == 6 ? k1_run<true, true, false, true>(A, stream)
+                          : k1_run<true, false, false, true>(A, stream);
+    if (err != 0) return err;
   }
   return K1_LAUNCH_ERROR();
+}
+
+// As k1_occupancy, for K1e's two flag sets.
+int k1e_occupancy(int with_env, int with_fresh, int ws_compare, int* out) {
+  int flags3 = (with_env ? 4 : 0) | (with_fresh ? 2 : 0) | (ws_compare ? 1 : 0);
+  if (flags3 == 6) return k1_occupancy_t<true, true, false, true>(out);
+  if (flags3 == 4) return k1_occupancy_t<true, false, false, true>(out);
+  return K1_BAD_FLAGS;
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
-// Kernel K1's model constants and its smooth-dynamics and collision stages,
-// for one env per thread (see step_kernel.cu for the kernel itself).
+// Kernel K1's model constants, its lane-group machinery, and the per-item
+// pieces of its smooth-dynamics and collision stages (see step_kernel.cuh
+// for the program and the kernel).
 //
-// Each function is the dense counterpart of a lane stage of ops/step.py
+// Each piece is the dense counterpart of a lane stage of ops/step.py
 // (fk_lanes, motion_subspace_lanes, spatial_inertia_lanes, crba_bias_lanes,
 // actuator_lanes, collide_lanes, joint_rows_lanes, contact_rows_lanes):
 // where the plain twin drops the model's static zeros while it builds its
-// program, these loops multiply by them.
+// program, these loops skip them at run time (body_dofs, body_inert).
 #pragma once
 
 #include "lidar.cuh"
@@ -18,11 +19,15 @@
 #define ROW_CONE 2
 #define K1_INF 1e30f  // running-min sentinel of the nearest-box/vertex picks
 
-#ifdef __CUDACC__
-#define NOINLINE __device__ __noinline__
-#else
-#define NOINLINE static
-#endif
+// G lanes compute one env (a power of two dividing 32, so a group never
+// straddles a warp); a block holds K1_ENVS envs.  The host build runs the
+// same G lanes one after another at every barrier.  G = 32 and 2 envs per
+// block timed fastest on an H100 (PERF.md).
+#define K1_G 32
+#define K1_ENVS 2
+#define K1_THREADS (K1_G * K1_ENVS)
+// group_chol_solve keeps one row of the factor per lane
+static_assert(K1_G >= NV, "K1_G lanes must hold the NV rows of a factor");
 
 // Impedance spline and reference-acceleration parameters of one
 // solref/solimp pair (mirror of ops/step.py Imp).
@@ -42,7 +47,6 @@ struct K1Const {
   float body_ipos[NBODY][3];
   float body_iquat[NBODY][4];
   float body_inertia[NBODY][3];
-  float mask[NBODY][NV];
   int jnt_type[NJNT];
   int jnt_body[NJNT];
   int jnt_qposadr[NJNT];
@@ -108,9 +112,143 @@ struct K1Const {
   int slot_wheel[NSLOT];
   float slot_iw[NSLOT];
   float plane_mu;
+  int order_inv[NV];  // position of each dof in the elimination order
+  uint32_t body_dofs[NBODY];  // per body its ancestor dofs, as bits
+  int body_depth[NBODY];      // per body its depth in the tree (world: 0)
+  int max_depth;
+  // the (v, w), v < w, of each entry above an NV x NV diagonal, row by row
+  int off_v[NV * (NV - 1) / 2];
+  int off_w[NV * (NV - 1) / 2];
+  int dof_jrows[NV][DOF_JROWS];  // per dof the joint rows that touch it,
+                                 // ascending, -1 padded
 };
 
+// Two copies of one block.  c_k1 in __constant__ memory serves reads at
+// one address for the whole warp (loop-uniform indices, the model's
+// scalars, the box loops); g_k1 in global memory, cached in L1, serves
+// tables that lanes index by their own item (per beam, slot, vertex, dof,
+// body), which __constant__ memory would serialize.
 KCONST K1Const c_k1;
+#ifdef __CUDACC__
+__device__ K1Const g_k1;
+#else
+#define g_k1 c_k1
+#endif
+
+// ---------------------------------------------------------- lane groups
+
+// One lane of the group that computes an env.
+struct Grp {
+  int lane;
+  unsigned mask;  // the group's lanes in the warp
+};
+
+#define FOR_ITEMS(i, lane, n) for (int i = (lane); i < (n); i += K1_G)
+
+#ifdef __CUDACC__
+#define UNROLL _Pragma("unroll")
+HD int popc64(uint64_t x) { return __popcll(x); }
+HD int popc32(uint32_t x) { return __popc(x); }
+HD int lowest_bit(uint32_t x) { return __ffs(x) - 1; }
+#else
+#define UNROLL
+HD int popc64(uint64_t x) { return __builtin_popcountll(x); }
+HD int popc32(uint32_t x) { return __builtin_popcount(x); }
+HD int lowest_bit(uint32_t x) { return __builtin_ctz(x); }
+#endif
+
+// One stage: f(lane) does the lane's items (item i goes to lane i % K1_G),
+// then the group waits for all its lanes.  A stage reads what earlier
+// stages wrote to the workspace and writes locations no other lane of the
+// same stage touches; nothing a lane computes outlives its stage except in
+// the workspace.  The host build calls f for lanes 0..K1_G-1 in turn, so
+// it runs the card's partition and its reduction order.
+#ifdef __CUDACC__
+template <class F>
+__device__ __forceinline__ void stage(const Grp& g, F&& f) {
+  f(g.lane);
+  __syncwarp(g.mask);
+}
+#else
+template <class F>
+static inline void stage(const Grp&, F&& f) {
+  for (int l = 0; l < K1_G; ++l) f(l);
+}
+#endif
+
+// A stage of one lane: the scalar tails.
+template <class F>
+HD void single(const Grp& g, F&& f) {
+  stage(g, [&](int lane) {
+    if (lane == 0) f();
+  });
+}
+
+// A value each lane keeps in a register from one lanes() call to the next;
+// the host build, which runs the lanes one after another, keeps one copy
+// per lane.
+template <class T>
+struct PerLane {
+#ifdef __CUDACC__
+  T v;
+  __device__ __forceinline__ T& at(int) { return v; }
+#else
+  T v[K1_G];
+  T& at(int lane) { return v[lane]; }
+#endif
+};
+
+// f(lane) on every lane of the group, with no barrier after it: for work
+// on PerLane registers, exchanged with from_lane().  A lane may read
+// another lane's registers only where no lane writes them in the same call.
+#ifdef __CUDACC__
+template <class F>
+__device__ __forceinline__ void lanes(const Grp& g, F&& f) {
+  f(g.lane);
+}
+// Lane src's value of f (a warp shuffle; every lane of the group calls it).
+template <class F>
+__device__ __forceinline__ float from_lane(const Grp& g, int src, F&& f) {
+  return __shfl_sync(g.mask, f(g.lane), src, K1_G);
+}
+#else
+template <class F>
+static inline void lanes(const Grp&, F&& f) {
+  for (int l = 0; l < K1_G; ++l) f(l);
+}
+template <class F>
+static inline float from_lane(const Grp&, int src, F&& f) {
+  return f(src);
+}
+#endif
+
+// The sum of x over the group's lanes, the same bits on every lane: a fixed
+// butterfly (lane l adds lane l ^ o's partial for o = G/2, ..., 1).
+HD float group_sum(const Grp& g, PerLane<float>& x) {
+#ifdef __CUDACC__
+  float s = x.v;
+  UNROLL for (int o = K1_G / 2; o > 0; o >>= 1)
+    s = s + __shfl_xor_sync(g.mask, s, o, K1_G);
+  return s;
+#else
+  float s[K1_G], n[K1_G];
+  for (int l = 0; l < K1_G; ++l) s[l] = x.v[l];
+  for (int o = K1_G / 2; o > 0; o >>= 1) {
+    for (int l = 0; l < K1_G; ++l) n[l] = s[l] + s[l ^ o];
+    for (int l = 0; l < K1_G; ++l) s[l] = n[l];
+  }
+  return s[0];
+#endif
+}
+
+// Whether dof v moves body b (an ancestor dof of b).
+HD bool moves(uint32_t body_dofs, int v) { return (body_dofs >> v) & 1u; }
+
+// The column of dof v among a body's dofs (the set bits of body_dofs, in
+// dof order).
+HD int dof_col(uint32_t body_dofs, int v) {
+  return popc32(body_dofs & ((1u << v) - 1u));
+}
 
 // ------------------------------------------------- domain-randomized scalars
 
@@ -130,117 +268,130 @@ KCONST K1Const c_k1;
 
 // Access to one env's randomized parameters.  DRP<false> is empty: the
 // non-randomized builds read K1Const and carry nothing.  DRP<true> points at
-// column b of dr; row r is read where it is used (coalesced across the
-// warp, cached in L1) rather than held in 85 registers.
+// the env's DR_ROWS parameters, copied into its workspace once.
 template <bool DR>
 struct DRP {};
 template <>
 struct DRP<true> {
-  const float* p;  // dr + b
-  long B;
+  const float* p;
 };
 
 // Parameter row `row` of the env under DR, else the model's value `base`.
 template <bool DR>
 HD float param(const DRP<DR>& d, int row, float base) {
-  if constexpr (DR) return d.p[row * d.B];
+  if constexpr (DR) return d.p[row];
   else return base;
 }
 
 // ---------------------------------------------------------------- kinematics
 
-HD void fk(const float* q, float (*xpos)[3], float (*xquat)[4]) {
-  const K1Const& C = c_k1;
-  for (int k = 0; k < 3; ++k) xpos[0][k] = 0.0f;
-  xquat[0][0] = 1.0f;
-  xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
-  for (int b = 1; b < NBODY; ++b) {
-    int p = C.body_parent[b];
-    float pos[3], quat[4], r[3];
-    qrot(xquat[p], C.body_pos[b], r);
-    for (int k = 0; k < 3; ++k) pos[k] = xpos[p][k] + r[k];
-    qmul(xquat[p], C.body_quat[b], quat);
-    for (int j = 0; j < NJNT; ++j) {
-      if (C.jnt_body[j] != b) continue;
-      int adr = C.jnt_qposadr[j];
-      int t = C.jnt_type[j];
-      if (t == JNT_FREE) {
-        for (int k = 0; k < 3; ++k) pos[k] = q[adr + k];
-        const float* qq = q + adr + 3;
-        float norm = sqrtf(qq[0] * qq[0] + qq[1] * qq[1] + qq[2] * qq[2] +
-                           qq[3] * qq[3]);
-        for (int k = 0; k < 4; ++k) quat[k] = qq[k] / norm;
-      } else if (t == JNT_HINGE) {
-        float theta = q[adr] - C.qpos0[adr];
-        const float* jp = C.jnt_pos[j];
-        const float* ax = C.jnt_axis[j];
-        bool has_jp = jp[0] != 0.0f || jp[1] != 0.0f || jp[2] != 0.0f;
-        float anchor[3];
-        qrot(quat, jp, r);
-        for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + r[k];
-        float half = theta * 0.5f;
-        float s = sinf(half);
-        float aa[4] = {cosf(half), ax[0] * s, ax[1] * s, ax[2] * s};
-        float nq[4];
-        qmul(quat, aa, nq);
-        for (int k = 0; k < 4; ++k) quat[k] = nq[k];
-        if (has_jp) {
-          qrot(quat, jp, r);
-          for (int k = 0; k < 3; ++k) pos[k] = anchor[k] - r[k];
-        }
-      } else {  // slide
-        qrot(quat, C.jnt_axis[j], r);
-        float dq = q[adr] - C.qpos0[adr];
-        for (int k = 0; k < 3; ++k) pos[k] = pos[k] + dq * r[k];
-      }
-    }
-    for (int k = 0; k < 3; ++k) xpos[b][k] = pos[k];
-    for (int k = 0; k < 4; ++k) xquat[b][k] = quat[k];
+// The frame of body b from its parent's (world: the identity).
+HD void fk_body(int b, const float* q, float (*xpos)[3], float (*xquat)[4]) {
+  const K1Const& C = g_k1;
+  int p = C.body_parent[b];
+  float pp[3] = {0.0f, 0.0f, 0.0f}, pq[4] = {1.0f, 0.0f, 0.0f, 0.0f};
+  if (p != 0) {
+    for (int k = 0; k < 3; ++k) pp[k] = xpos[p][k];
+    for (int k = 0; k < 4; ++k) pq[k] = xquat[p][k];
   }
-}
-
-// S[v] = (angular, linear) motion of dof v about anchor.
-HD void motion_subspace(const float (*xpos)[3], const float (*xquat)[4],
-                        const float* anchor, float (*S)[6]) {
-  const K1Const& C = c_k1;
+  float pos[3], quat[4], r[3];
+  qrot(pq, C.body_pos[b], r);
+  for (int k = 0; k < 3; ++k) pos[k] = pp[k] + r[k];
+  qmul(pq, C.body_quat[b], quat);
   for (int j = 0; j < NJNT; ++j) {
-    int b = C.jnt_body[j];
-    int da = C.jnt_dofadr[j];
+    if (c_k1.jnt_body[j] != b) continue;
+    int adr = C.jnt_qposadr[j];
     int t = C.jnt_type[j];
     if (t == JNT_FREE) {
-      for (int k = 0; k < 3; ++k)
-        for (int l = 0; l < 6; ++l) S[da + k][l] = (l == 3 + k) ? 1.0f : 0.0f;
-      float R[9], rel[3];
-      qmat(xquat[b], R);
-      for (int k = 0; k < 3; ++k) rel[k] = anchor[k] - xpos[b][k];
-      for (int k = 0; k < 3; ++k) {
-        float w[3] = {R[k], R[3 + k], R[6 + k]};
-        float* s = S[da + 3 + k];
-        s[0] = w[0];
-        s[1] = w[1];
-        s[2] = w[2];
-        v3cross(w, rel, s + 3);
-      }
-    } else {
-      float aw[3], anch[3], r[3];
-      qrot(xquat[b], C.jnt_axis[j], aw);
+      for (int k = 0; k < 3; ++k) pos[k] = q[adr + k];
+      const float* qq = q + adr + 3;
+      float norm = sqrtf(qq[0] * qq[0] + qq[1] * qq[1] + qq[2] * qq[2] +
+                         qq[3] * qq[3]);
+      for (int k = 0; k < 4; ++k) quat[k] = qq[k] / norm;
+    } else if (t == JNT_HINGE) {
+      float theta = q[adr] - C.qpos0[adr];
       const float* jp = C.jnt_pos[j];
-      for (int k = 0; k < 3; ++k) anch[k] = xpos[b][k];
-      if (jp[0] != 0.0f || jp[1] != 0.0f || jp[2] != 0.0f) {
-        qrot(xquat[b], jp, r);
-        for (int k = 0; k < 3; ++k) anch[k] = anch[k] + r[k];
+      const float* ax = C.jnt_axis[j];
+      bool has_jp = jp[0] != 0.0f || jp[1] != 0.0f || jp[2] != 0.0f;
+      float anchor[3];
+      qrot(quat, jp, r);
+      for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + r[k];
+      float s, c;
+      sincosf(theta * 0.5f, &s, &c);
+      float aa[4] = {c, ax[0] * s, ax[1] * s, ax[2] * s};
+      float nq[4];
+      qmul(quat, aa, nq);
+      for (int k = 0; k < 4; ++k) quat[k] = nq[k];
+      if (has_jp) {
+        qrot(quat, jp, r);
+        for (int k = 0; k < 3; ++k) pos[k] = anchor[k] - r[k];
       }
-      float* s = S[da];
-      if (t == JNT_HINGE) {
-        float rel[3];
-        for (int k = 0; k < 3; ++k) rel[k] = anchor[k] - anch[k];
-        for (int k = 0; k < 3; ++k) s[k] = aw[k];
-        v3cross(aw, rel, s + 3);
-      } else {
-        for (int k = 0; k < 3; ++k) {
-          s[k] = 0.0f;
-          s[3 + k] = aw[k];
-        }
+    } else {  // slide
+      qrot(quat, C.jnt_axis[j], r);
+      float dq = q[adr] - C.qpos0[adr];
+      for (int k = 0; k < 3; ++k) pos[k] = pos[k] + dq * r[k];
+    }
+  }
+  for (int k = 0; k < 3; ++k) xpos[b][k] = pos[k];
+  for (int k = 0; k < 4; ++k) xquat[b][k] = quat[k];
+}
+
+// Every body's frame, one tree level per stage and one lane per body.
+HD void group_fk(const Grp& g, const float* q, float (*xpos)[3],
+                 float (*xquat)[4]) {
+  for (int d = 1; d <= c_k1.max_depth; ++d)
+    stage(g, [&](int lane) {
+      if (d == 1 && lane == 0) {
+        for (int k = 0; k < 3; ++k) xpos[0][k] = 0.0f;
+        xquat[0][0] = 1.0f;
+        xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
+      }
+      FOR_ITEMS(b, lane, NBODY) {
+        if (g_k1.body_depth[b] == d) fk_body(b, q, xpos, xquat);
+      }
+    });
+}
+
+// S[v] = (angular, linear) motion about anchor of the dofs of joint j.
+HD void joint_subspace(int j, const float (*xpos)[3], const float (*xquat)[4],
+                       const float* anchor, float (*S)[6]) {
+  const K1Const& C = g_k1;
+  int b = C.jnt_body[j];
+  int da = C.jnt_dofadr[j];
+  int t = C.jnt_type[j];
+  if (t == JNT_FREE) {
+    for (int k = 0; k < 3; ++k)
+      for (int l = 0; l < 6; ++l) S[da + k][l] = (l == 3 + k) ? 1.0f : 0.0f;
+    float R[9], rel[3];
+    qmat(xquat[b], R);
+    for (int k = 0; k < 3; ++k) rel[k] = anchor[k] - xpos[b][k];
+    for (int k = 0; k < 3; ++k) {
+      float w[3] = {R[k], R[3 + k], R[6 + k]};
+      float* s = S[da + 3 + k];
+      s[0] = w[0];
+      s[1] = w[1];
+      s[2] = w[2];
+      v3cross(w, rel, s + 3);
+    }
+  } else {
+    float aw[3], anch[3], r[3];
+    qrot(xquat[b], C.jnt_axis[j], aw);
+    const float* jp = C.jnt_pos[j];
+    for (int k = 0; k < 3; ++k) anch[k] = xpos[b][k];
+    if (jp[0] != 0.0f || jp[1] != 0.0f || jp[2] != 0.0f) {
+      qrot(xquat[b], jp, r);
+      for (int k = 0; k < 3; ++k) anch[k] = anch[k] + r[k];
+    }
+    float* s = S[da];
+    if (t == JNT_HINGE) {
+      float rel[3];
+      for (int k = 0; k < 3; ++k) rel[k] = anchor[k] - anch[k];
+      for (int k = 0; k < 3; ++k) s[k] = aw[k];
+      v3cross(aw, rel, s + 3);
+    } else {
+      for (int k = 0; k < 3; ++k) {
+        s[k] = 0.0f;
+        s[3 + k] = aw[k];
       }
     }
   }
@@ -251,7 +402,7 @@ template <bool DR>
 HD void spatial_inertia(int b, const float* xpos_b, const float* xquat_b,
                         const float* anchor, float (*I6)[6],
                         const DRP<DR>& dr) {
-  const K1Const& C = c_k1;
+  const K1Const& C = g_k1;
   float iq[4], R[9], com[3], c[3];
   qmul(xquat_b, C.body_iquat[b], iq);
   qmat(iq, R);
@@ -277,13 +428,6 @@ HD void spatial_inertia(int b, const float* xpos_b, const float* xquat_b,
     }
 }
 
-// Rows k of the body Jacobian J_b (6 x NV): S masked by b's ancestor dofs.
-HD void body_jacobian(int b, const float (*S)[6], float (*J)[NV]) {
-  for (int k = 0; k < 6; ++k)
-    for (int v = 0; v < NV; ++v)
-      J[k][v] = c_k1.mask[b][v] != 0.0f ? S[v][k] : 0.0f;
-}
-
 HD void mat6_vec(const float (*A)[6], const float* x, float* y) {
   for (int k = 0; k < 6; ++k) {
     float s = 0.0f;
@@ -292,99 +436,34 @@ HD void mat6_vec(const float (*A)[6], const float* x, float* y) {
   }
 }
 
-// Mass matrix by CRBA (sum_b J_b^T I_b J_b + armature) and bias forces by
-// RNEA, about anchor = the chassis origin.
-template <bool DR>
-NOINLINE void crba_bias(const float (*xpos)[3], const float (*xquat)[4],
-                        const float* vel, const float (*S)[6],
-                        const float* anchor, float (*M)[NV], float* fbias,
-                        DRP<DR> dr) {
-  const K1Const& C = c_k1;
-  float J[6][NV], IJ[6][NV], I6[6][6];
-  float vbody[NBODY][6];
-  for (int v = 0; v < NV; ++v)
-    for (int w = 0; w < NV; ++w) M[v][w] = 0.0f;
-  for (int b = 0; b < NBODY; ++b) {
-    for (int k = 0; k < 6; ++k) vbody[b][k] = 0.0f;
-    if (!C.body_inert[b]) continue;
-    body_jacobian(b, S, J);
-    spatial_inertia(b, xpos[b], xquat[b], anchor, I6, dr);
-    for (int k = 0; k < 6; ++k)
-      for (int v = 0; v < NV; ++v) {
-        float s = 0.0f;
-        for (int l = 0; l < 6; ++l) s = s + I6[k][l] * J[l][v];
-        IJ[k][v] = s;
-      }
-    for (int v = 0; v < NV; ++v)
-      for (int w = v; w < NV; ++w) {
-        float s = M[v][w];
-        for (int k = 0; k < 6; ++k) s = s + J[k][v] * IJ[k][w];
-        M[v][w] = s;
-      }
-    for (int k = 0; k < 6; ++k) {
-      float s = 0.0f;
-      for (int v = 0; v < NV; ++v) s = s + J[k][v] * vel[v];
-      vbody[b][k] = s;
-    }
-  }
-  for (int v = 0; v < NV; ++v) {
-    for (int w = 0; w < v; ++w) M[v][w] = M[w][v];
-    M[v][v] = M[v][v] + param(dr, DR_DOF_ARMATURE + v, C.dof_armature[v]);
-  }
-
-  // velocity-product accelerations of the carried (non-free-translation)
-  // dofs: (vbody of the dof's body) x S[d] * qvel[d]
-  float cdot[NV][6];
-  for (int d = 0; d < NV; ++d) {
-    int db = C.dof_body[d];
-    if (C.dof_carried[d] && C.body_inert[db]) {
-      const float* vb = vbody[db];
-      const float* s = S[d];
-      float mc[6], t[3];
-      v3cross(vb, s, mc);
-      v3cross(vb + 3, s, mc + 3);
-      v3cross(vb, s + 3, t);
-      for (int k = 0; k < 3; ++k) mc[3 + k] = mc[3 + k] + t[k];
-      for (int k = 0; k < 6; ++k) cdot[d][k] = mc[k] * vel[d];
-    } else {
-      for (int k = 0; k < 6; ++k) cdot[d][k] = 0.0f;
-    }
-  }
-  for (int v = 0; v < NV; ++v) fbias[v] = 0.0f;
-  for (int b = 0; b < NBODY; ++b) {
-    if (!C.body_inert[b]) continue;
-    body_jacobian(b, S, J);
-    spatial_inertia(b, xpos[b], xquat[b], anchor, I6, dr);
-    float ab[6], Iv[6], Ia[6], fc[6], t[3];
-    for (int k = 0; k < 6; ++k) {
-      float s = k < 3 ? 0.0f : -C.gravity[k - 3];
-      for (int v = 0; v < NV; ++v)
-        if (C.mask[b][v] != 0.0f) s = s + cdot[v][k];
-      ab[k] = s;
-    }
-    mat6_vec(I6, vbody[b], Iv);
-    mat6_vec(I6, ab, Ia);
-    // force cross product vbody x* (I vbody)
-    v3cross(vbody[b], Iv, fc);
-    v3cross(vbody[b] + 3, Iv + 3, t);
-    for (int k = 0; k < 3; ++k) fc[k] = fc[k] + t[k];
-    v3cross(vbody[b], Iv + 3, fc + 3);
-    for (int v = 0; v < NV; ++v) {
-      float s = fbias[v];
-      for (int k = 0; k < 6; ++k) s = s + J[k][v] * (Ia[k] + fc[k]);
-      fbias[v] = s;
-    }
+// Velocity-product acceleration of carried dof d (zero otherwise):
+// (vbody of the dof's body) x S[d] * qvel[d].
+HD void dof_cdot(int d, const float (*vbody)[6], const float* s, float vel_d,
+                 float* out) {
+  const K1Const& C = g_k1;
+  int db = C.dof_body[d];
+  if (C.dof_carried[d] && C.body_inert[db]) {
+    const float* vb = vbody[db];
+    float mc[6], t[3];
+    v3cross(vb, s, mc);
+    v3cross(vb + 3, s, mc + 3);
+    v3cross(vb, s + 3, t);
+    for (int k = 0; k < 3; ++k) mc[3 + k] = mc[3 + k] + t[k];
+    for (int k = 0; k < 6; ++k) out[k] = mc[k] * vel_d;
+  } else {
+    for (int k = 0; k < 6; ++k) out[k] = 0.0f;
   }
 }
 
-// ctrl -> generalized actuator force per dof.
+// ctrl -> generalized actuator force on dof v.
 template <bool DR>
-HD void actuator_force(const float* q, const float* vel, const float* ctrl,
-                       float* out, const DRP<DR>& dr) {
+HD float actuator_force(int v, const float* q, const float* vel,
+                        const float* ctrl, const DRP<DR>& dr) {
   const K1Const& C = c_k1;
-  for (int v = 0; v < NV; ++v) out[v] = 0.0f;
+  float out = 0.0f;
   for (int u = 0; u < NU; ++u) {
     int d = C.act_dof[u];
+    if (d != v) continue;
     float c = fminf(fmaxf(ctrl[u], C.act_ctrlrange[u][0]),
                     C.act_ctrlrange[u][1]);
     float gain = param(dr, DR_ACT_GAIN + u, C.act_gain[u]);
@@ -393,44 +472,90 @@ HD void actuator_force(const float* q, const float* vel, const float* ctrl,
     float b2 = param(dr, DR_ACT_BIAS + 3 * u + 2, C.act_bias[u][2]);
     float f = gain * c + b0 + b1 * q[C.act_qadr[u]] + b2 * vel[d];
     f = fminf(fmaxf(f, C.act_forcerange[u][0]), C.act_forcerange[u][1]);
-    out[d] = out[d] + f;
+    out = out + f;
   }
+  return out;
 }
 
-// Solve H x = g (SPD) by a Cholesky factorization in the model's
-// leaves-first elimination order (wheel-chain dofs before the free joint).
-HD void chol_solve(const float (*H)[NV], const float* g, float* x) {
-  const int* p = c_k1.order;
-  float L[NV][NV], y[NV], z[NV];
-  for (int j = 0; j < NV; ++j) {
-    float s[NV];
-    for (int i = j; i < NV; ++i) {
-      float t = H[p[i]][p[j]];
-      for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
-      s[i] = t;
+// ------------------------------------------------- the group's Cholesky
+
+// An SPD system in the model's leaves-first elimination order (wheel-chain
+// dofs before the free joint): A[i][k] = H[p[i]][p[k]] for i >= k and
+// t[i] = g[p[i]], p = C.order.
+struct Chol {
+  float A[NV][NV];
+  float t[NV];
+};
+
+// Solve the system the previous stage wrote into c; x[p[i]] = z[i].
+// Lane i < NV holds row i and t[i] in registers.  Right-looking: step j
+// takes the pivot and column j from their lanes by shuffles, and each lane
+// updates its row's trailing entries and its right-hand side, so the
+// forward solve rides along.  Column j is scaled by the pivot's rsqrt one
+// step later, when no lane reads it any more: row i becomes row i of the
+// factor L, and t[i] becomes y[i].  The back substitution, a chain of NV
+// divisions, runs on every lane alike, each term's L[k][i] taken from lane
+// k.
+HD void group_chol_solve(const Grp& g, Chol& c, float* x) {
+  PerLane<float[NV]> row;
+  PerLane<float> t;
+  lanes(g, [&](int lane) {
+    float* r = row.at(lane);
+    UNROLL for (int k = 0; k < NV; ++k)
+      r[k] = (lane < NV && k <= lane) ? c.A[lane][k] : 0.0f;
+    t.at(lane) = lane < NV ? c.t[lane] : 0.0f;
+  });
+  float d_prev = 1.0f, y_prev = 0.0f;  // step j - 1's pivot rsqrt and y
+  UNROLL for (int j = 0; j < NV; ++j) {
+    float d_j = 0.0f, y_j = 0.0f;
+    lanes(g, [&](int lane) {
+      float* r = row.at(lane);
+      float ajj = from_lane(g, j, [&](int l) { return row.at(l)[j]; });
+      float tj = from_lane(g, j, [&](int l) { return t.at(l); });
+      float lkj[NV];
+      UNROLL for (int k = j + 1; k < NV; ++k)
+        lkj[k] = from_lane(g, k, [&](int l) { return row.at(l)[j]; });
+      float d = rsqrtf(fmaxf(ajj, 1e-30f));
+      float yj = tj / (ajj * d);
+      float lij = r[j] * d;
+      UNROLL for (int k = j + 1; k < NV; ++k)
+        if (k <= lane) r[k] = r[k] - lij * (lkj[k] * d);
+      if (lane > j) t.at(lane) = t.at(lane) - lij * yj;
+      if (j > 0) {
+        r[j - 1] = r[j - 1] * d_prev;
+        if (lane == j - 1) t.at(lane) = y_prev;
+      }
+      d_j = d;
+      y_j = yj;
+    });
+    d_prev = d_j;
+    y_prev = y_j;
+  }
+  lanes(g, [&](int lane) {
+    float* r = row.at(lane);
+    r[NV - 1] = r[NV - 1] * d_prev;
+    if (lane == NV - 1) t.at(lane) = y_prev;
+  });
+  stage(g, [&](int lane) {
+    float z[NV];
+    UNROLL for (int i = NV - 1; i >= 0; --i) {
+      float s = from_lane(g, i, [&](int l) { return t.at(l); });
+      UNROLL for (int k = i + 1; k < NV; ++k)
+        s = s - from_lane(g, k, [&](int l) { return row.at(l)[i]; }) * z[k];
+      z[i] = s / from_lane(g, i, [&](int l) { return row.at(l)[i]; });
     }
-    float d = rsqrtf(fmaxf(s[j], 1e-30f));
-    for (int i = j; i < NV; ++i) L[i][j] = s[i] * d;
-  }
-  for (int i = 0; i < NV; ++i) {
-    float t = g[p[i]];
-    for (int k = 0; k < i; ++k) t = t - L[i][k] * y[k];
-    y[i] = t / L[i][i];
-  }
-  for (int i = NV - 1; i >= 0; --i) {
-    float t = y[i];
-    for (int k = i + 1; k < NV; ++k) t = t - L[k][i] * z[k];
-    z[i] = t / L[i][i];
-  }
-  for (int i = 0; i < NV; ++i) x[p[i]] = z[i];
+    if (lane == 0)
+      UNROLL for (int i = 0; i < NV; ++i) x[c_k1.order[i]] = z[i];
+  });
 }
 
 // ----------------------------------------------------------------- collision
 
-// One contact candidate: point, frame rows (normal, t1, t2), distance.
+// One contact candidate: point, normal, distance (the row's frame is
+// make_frame of the normal; the plane's normal gives plane_frame exactly).
 struct Slot {
   float pos[3];
-  float frame[9];
+  float n[3];
   float dist;
 };
 
@@ -440,7 +565,7 @@ HD void plane_slot(const float* p, float plane_z, Slot& s) {
   s.pos[1] = p[1];
   s.pos[2] = p[2] - 0.5f * dist;
   s.dist = dist;
-  for (int k = 0; k < 9; ++k) s.frame[k] = c_k1.plane_frame[k];
+  for (int k = 0; k < 3; ++k) s.n[k] = c_k1.plane_frame[k];
 }
 
 // Tangent frame rows [n, t1, t2] of a contact normal.
@@ -520,13 +645,13 @@ HD void nearest_boxes(const float* c, int* best, int* second) {
   *second = is;
 }
 
-// Cylinder (center c, unit axis a, radius r, half-height h) vs box k: one
-// candidate per disc end, the rim point nearest the box (two fixed-point
-// iterations), collided as a point.
-HD void cylinder_box(const float* c, const float* a, float r, float h, int k,
-                     Slot* out) {
-  const float* bp = c_k1.box_pos[k];
-  const float* bs = c_k1.box_size[k];
+// Cylinder (center c, unit axis a, radius r, half-height h) vs box k at
+// disc end e: the rim point nearest the box (two fixed-point iterations),
+// collided as a point.
+HD void cylinder_box_end(const float* c, const float* a, float r, float h,
+                         int k, int e, Slot& out) {
+  const float* bp = g_k1.box_pos[k];
+  const float* bs = g_k1.box_size[k];
   float fx[3] = {1.0f - a[0] * a[0], -(a[0] * a[1]), -(a[0] * a[2])};
   float fy[3] = {-(a[1] * a[0]), 1.0f - a[1] * a[1], -(a[1] * a[2])};
   float fxn = sqrtf(fx[0] * fx[0] + fx[1] * fx[1] + fx[2] * fx[2]);
@@ -535,47 +660,107 @@ HD void cylinder_box(const float* c, const float* a, float r, float h, int k,
   float fn = fmaxf(sqrtf(fall[0] * fall[0] + fall[1] * fall[1] +
                          fall[2] * fall[2]), 1e-12f);
   for (int l = 0; l < 3; ++l) fall[l] = fall[l] / fn;
-  for (int e = 0; e < 2; ++e) {
-    float eh = (e == 0 ? -1.0f : 1.0f) * h;
-    float ce[3], q[3];
-    for (int l = 0; l < 3; ++l) q[l] = ce[l] = c[l] + eh * a[l];
-    for (int it = 0; it < 2; ++it) {
-      float d[3];
-      for (int l = 0; l < 3; ++l)
-        d[l] = (bp[l] + fminf(fmaxf(q[l] - bp[l], -bs[l]), bs[l])) - ce[l];
-      float da = d[0] * a[0] + d[1] * a[1] + d[2] * a[2];
-      float dp[3];
-      for (int l = 0; l < 3; ++l) dp[l] = d[l] - da * a[l];
-      float dn = sqrtf(dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]);
-      float dsafe = fmaxf(dn, 1e-9f);
-      for (int l = 0; l < 3; ++l)
-        q[l] = ce[l] + r * (dn > 1e-9f ? dp[l] / dsafe : fall[l]);
-    }
-    float n[3];
-    point_box(q, bp, bs, &out[e].dist, n, out[e].pos);
-    make_frame(n, out[e].frame);
+  float eh = (e == 0 ? -1.0f : 1.0f) * h;
+  float ce[3], q[3];
+  for (int l = 0; l < 3; ++l) q[l] = ce[l] = c[l] + eh * a[l];
+  for (int it = 0; it < 2; ++it) {
+    float d[3];
+    for (int l = 0; l < 3; ++l)
+      d[l] = (bp[l] + fminf(fmaxf(q[l] - bp[l], -bs[l]), bs[l])) - ce[l];
+    float da = d[0] * a[0] + d[1] * a[1] + d[2] * a[2];
+    float dp[3];
+    for (int l = 0; l < 3; ++l) dp[l] = d[l] - da * a[l];
+    float dn = sqrtf(dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]);
+    float dsafe = fmaxf(dn, 1e-9f);
+    for (int l = 0; l < 3; ++l)
+      q[l] = ce[l] + r * (dn > 1e-9f ? dp[l] / dsafe : fall[l]);
+  }
+  point_box(q, bp, bs, &out.dist, out.n, out.pos);
+}
+
+// Per wheel, what its slots share: center, axis, its two nearest boxes.
+struct WheelGeom {
+  float c[3], a[3];
+  int nb[2];
+};
+
+// Per hull: rotation, nearest box to its center, and per vertex its world
+// position and its plane and box scores (distance minus the vertex bias).
+struct HullGeom {
+  float R[9];
+  int nb;
+  float v[NHULLV][3];
+  float plane_score[NHULLV];
+  float box_score[NHULLV];
+};
+
+// Item i of NWHEEL + NHULL: a wheel's center and axis, or a hull's
+// rotation, and the nearest boxes to the wheel's or the hull's center (one
+// nearest_boxes call that wheel and hull lanes share).
+HD void geom_item(int i, const float (*xpos)[3], const float (*xquat)[4],
+                  WheelGeom* wg, HullGeom* hg) {
+  const K1Const& C = g_k1;
+  bool wheel = i < NWHEEL;
+  int h = i - NWHEEL;
+  int b = wheel ? C.wheel_body[i] : C.hull_body[h];
+  float ctr[3];
+  if (wheel) {
+    WheelGeom& o = wg[i];
+    qrot(xquat[b], C.wheel_pos[i], o.c);
+    for (int k = 0; k < 3; ++k) ctr[k] = o.c[k] = xpos[b][k] + o.c[k];
+    qrot(xquat[b], C.wheel_axis[i], o.a);
+  } else {
+    qmat(xquat[b], hg[h].R);
+    qrot(xquat[b], C.hull_center[h], ctr);
+    for (int k = 0; k < 3; ++k) ctr[k] = xpos[b][k] + ctr[k];
+  }
+  int best = 0, second = 0;
+  if (c_k1.nbox > 0) nearest_boxes(ctr, &best, &second);
+  if (wheel) {
+    wg[i].nb[0] = best;
+    wg[i].nb[1] = second;
+  } else {
+    hg[h].nb = best;
   }
 }
 
-// All NSLOT contact slots in the kernel's fixed layout: per wheel 4 plane
-// slots, then per wheel 4 box slots (2 nearest boxes x 2 disc ends), then
-// per hull 4 plane and 4 box quadrant slots.  Slots a scene cannot fill get
-// a positive distance, which leaves them inactive.
-template <bool DR>
-NOINLINE void collide(const float (*xpos)[3], const float (*xquat)[4],
-                      Slot* slots, DRP<DR> dr) {
-  const K1Const& C = c_k1;
-  const float plane_z = param(dr, DR_PLANE_Z, C.lidar.plane_z);
-  for (int s = 0; s < NSLOT; ++s) slots[s].dist = 1.0f;
-  for (int w = 0; w < NWHEEL; ++w) {
-    int b = C.wheel_body[w];
-    float c[3], a[3];
-    qrot(xquat[b], C.wheel_pos[w], c);
-    for (int k = 0; k < 3; ++k) c[k] = xpos[b][k] + c[k];
-    qrot(xquat[b], C.wheel_axis[w], a);
-    float r = C.wheel_size[w][0], h = C.wheel_size[w][1];
+// Hull i's vertex kv in the world, and its scores.
+HD void hull_vertex(int i, int kv, const float (*xpos)[3], float plane_z,
+                    HullGeom& o) {
+  const K1Const& C = g_k1;
+  const float* l = C.hull_verts[i][kv];
+  const float* xp = xpos[C.hull_body[i]];
+  const float* R = o.R;
+  float v[3];
+  for (int r = 0; r < 3; ++r) {
+    v[r] = xp[r] + (R[3 * r] * l[0] + R[3 * r + 1] * l[1] +
+                    R[3 * r + 2] * l[2]);
+    o.v[kv][r] = v[r];
+  }
+  float bias = C.hull_bias[i][kv];
+  o.plane_score[kv] = (v[2] - plane_z) - bias;
+  float score = K1_INF;
+  if (c_k1.nbox > 0) {
+    float d, n[3], cp[3];
+    point_box(v, C.box_pos[o.nb], C.box_size[o.nb], &d, n, cp);
+    score = d - bias;
+  }
+  o.box_score[kv] = score;
+}
 
-    // wheel vs plane: two rim candidates + the deep-face +-120 degree pair
+// Contact slot s in the kernel's fixed layout: per wheel 4 plane slots,
+// then per wheel 4 box slots (2 nearest boxes x 2 disc ends), then per
+// hull 4 plane and 4 box quadrant slots (the deepest vertex of each
+// body-frame xy quadrant; the lowest vertex index wins a tie).  Slots a
+// scene cannot fill get a positive distance, which leaves them inactive.
+HD void collide_slot(int s, const WheelGeom* wg, const HullGeom* hg,
+                     float plane_z, Slot& out) {
+  const K1Const& C = g_k1;
+  out.dist = 1.0f;
+  if (s < 4 * NWHEEL) {  // wheel vs plane: two rim candidates + the
+    int w = s / 4, e = s % 4;  // deep-face +-120 degree pair
+    const float *c = wg[w].c, *a = wg[w].a;
+    float r = C.wheel_size[w][0], h = C.wheel_size[w][1];
     float az = a[2];
     float proj[3] = {-(az * a[0]), -(az * a[1]), 1.0f - az * a[2]};
     float pn = sqrtf(proj[0] * proj[0] + proj[1] * proj[1] +
@@ -586,91 +771,48 @@ NOINLINE void collide(const float (*xpos)[3], const float (*xquat)[4],
                    pn > 1e-9f ? proj[1] / pns : 0.0f,
                    pn > 1e-9f ? proj[2] / pns : 0.0f};
     float p[3];
-    for (int e = 0; e < 2; ++e) {
+    if (e < 2) {
       float sh = (e == 0 ? -1.0f : 1.0f) * h;
       for (int k = 0; k < 3; ++k) p[k] = (c[k] + sh * a[k]) - r * rd[k];
-      plane_slot(p, plane_z, slots[4 * w + e]);
-    }
-    float deep = h * (az > 0.0f ? -1.0f : 1.0f);
-    float dc[3], t[3];
-    for (int k = 0; k < 3; ++k) dc[k] = c[k] + deep * a[k];
-    v3cross(a, rd, t);
-    for (int e = 0; e < 2; ++e) {
-      float ss = e == 0 ? -0.86602540378443865f : 0.86602540378443865f;
+    } else {
+      float deep = h * (az > 0.0f ? -1.0f : 1.0f);
+      float dc[3], t[3];
+      for (int k = 0; k < 3; ++k) dc[k] = c[k] + deep * a[k];
+      v3cross(a, rd, t);
+      float ss = e == 2 ? -0.86602540378443865f : 0.86602540378443865f;
       for (int k = 0; k < 3; ++k)
         p[k] = dc[k] + r * (0.5f * rd[k] + ss * t[k]);
-      plane_slot(p, plane_z, slots[4 * w + 2 + e]);
     }
-
-    // wheel vs its 2 nearest boxes
-    if (C.nbox > 0) {
-      int nb[2];
-      nearest_boxes(c, &nb[0], &nb[1]);
-      int ncand = C.nbox < 2 ? C.nbox : 2;
-      for (int ci = 0; ci < ncand; ++ci)
-        cylinder_box(c, a, r, h, nb[ci], slots + 4 * NWHEEL + 4 * w + 2 * ci);
-    }
-  }
-
-  // chassis hulls: the deepest vertex per body-frame xy quadrant, vs the
-  // plane and vs the nearest box
-  for (int i = 0; i < NHULL; ++i) {
-    int b = C.hull_body[i];
-    float R[9];
-    qmat(xquat[b], R);
-    float verts[NHULLV][3];
+    plane_slot(p, plane_z, out);
+  } else if (s < 8 * NWHEEL) {  // wheel vs its 2 nearest boxes
+    int k = s - 4 * NWHEEL;
+    int w = k / 4, ci = (k % 4) / 2, e = k % 2;
+    int ncand = c_k1.nbox < 2 ? c_k1.nbox : 2;
+    if (ci < ncand)
+      cylinder_box_end(wg[w].c, wg[w].a, C.wheel_size[w][0],
+                       C.wheel_size[w][1], wg[w].nb[ci], e, out);
+  } else {  // hull quadrants vs the plane, then vs the nearest box
+    int k = s - 8 * NWHEEL;
+    int i = k / 8, qd = k % 4;
+    bool box = (k % 8) >= 4;
+    if (box && c_k1.nbox == 0) return;
+    const HullGeom& o = hg[i];
+    const float* score = box ? o.box_score : o.plane_score;
+    uint64_t quad = C.hull_quad[i][qd];
+    float best = K1_INF;
+    int kb = -1;
     for (int kv = 0; kv < NHULLV; ++kv) {
-      const float* l = C.hull_verts[i][kv];
-      for (int r = 0; r < 3; ++r)
-        verts[kv][r] = xpos[b][r] +
-                       (R[3 * r] * l[0] + R[3 * r + 1] * l[1] +
-                        R[3 * r + 2] * l[2]);
-    }
-    Slot* hs = slots + 8 * NWHEEL + 8 * i;
-    for (int qd = 0; qd < 4; ++qd) {
-      uint64_t quad = C.hull_quad[i][qd];
-      float best = K1_INF;
-      int kb = -1;
-      for (int kv = 0; kv < NHULLV; ++kv) {
-        if (!((quad >> kv) & 1ull)) continue;
-        float score = (verts[kv][2] - plane_z) - C.hull_bias[i][kv];
-        if (score < best) {
-          best = score;
-          kb = kv;
-        }
+      if (!((quad >> kv) & 1ull)) continue;
+      if (score[kv] < best) {
+        best = score[kv];
+        kb = kv;
       }
-      if (kb >= 0) plane_slot(verts[kb], plane_z, hs[qd]);
     }
-    if (C.nbox > 0) {
-      float ctr[3];
-      qrot(xquat[b], C.hull_center[i], ctr);
-      for (int k = 0; k < 3; ++k) ctr[k] = xpos[b][k] + ctr[k];
-      int nb, unused;
-      nearest_boxes(ctr, &nb, &unused);
-      for (int qd = 0; qd < 4; ++qd) {
-        uint64_t quad = C.hull_quad[i][qd];
-        float best = K1_INF, bd = 0.0f, bn[3] = {0, 0, 0}, bpos[3] = {0, 0, 0};
-        for (int kv = 0; kv < NHULLV; ++kv) {
-          if (!((quad >> kv) & 1ull)) continue;
-          float d, n[3], cp[3];
-          point_box(verts[kv], C.box_pos[nb], C.box_size[nb], &d, n, cp);
-          float score = d - C.hull_bias[i][kv];
-          if (score < best) {
-            best = score;
-            bd = d;
-            for (int k = 0; k < 3; ++k) {
-              bn[k] = n[k];
-              bpos[k] = cp[k];
-            }
-          }
-        }
-        Slot& s = hs[4 + qd];
-        if (best < K1_INF) {
-          s.dist = bd;
-          for (int k = 0; k < 3; ++k) s.pos[k] = bpos[k];
-          make_frame(bn, s.frame);
-        }
-      }
+    if (!box) {
+      if (kb >= 0) plane_slot(o.v[kb], plane_z, out);
+    } else if (best < K1_INF) {
+      point_box(o.v[kb], C.box_pos[o.nb], C.box_size[o.nb], &out.dist,
+                out.n, out.pos);
     }
   }
 }
@@ -695,4 +837,19 @@ HD float impedance(const Imp& p, float r) {
     y = 1.0f - p.b * up;
   }
   return p.d0 + y * p.dmm;
+}
+
+// One beam of the scan of K1: site i given its body's frame.  The site's
+// constants are per lane (g_k1), the box loop reads one address for the
+// whole warp (c_k1); the arithmetic is lidar.cuh's lidar_site.
+HD float k1_beam(int i, const float* bp, const float* bq, float plane_z) {
+  const LidarConst& L = g_k1.lidar;
+  float o[3], q[4];
+  qrot(bq, L.site_pos[i], o);
+  for (int k = 0; k < 3; ++k) o[k] = bp[k] + o[k];
+  qmul(bq, L.site_quat[i], q);
+  float w = q[0], x = q[1], y = q[2], z = q[3];
+  float d[3] = {2.0f * (x * z + w * y), 2.0f * (y * z - w * x),
+                1.0f - 2.0f * (x * x + y * y)};
+  return lidar_beam(c_k1.lidar, o, d, L.cutoff[i], plane_z);
 }

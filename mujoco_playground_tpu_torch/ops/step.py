@@ -1001,7 +1001,8 @@ def step_plain(model, qpos, qvel, ctrl, warmstart, env_in=None,
 NQ, NV, NU, NBODY = _DIMS["NQ"], _DIMS["NV"], _DIMS["NU"], _DIMS["NBODY"]
 NJNT, NWHEEL, NHULL = _DIMS["NJNT"], _DIMS["NWHEEL"], _DIMS["NHULL"]
 NHULLV, NJROW, NSLOT = _DIMS["NHULLV"], _DIMS["NJROW"], _DIMS["NSLOT"]
-MAX_BOXES = _DIMS["MAX_BOXES"]
+MAX_BOXES, DOF_JROWS = _DIMS["MAX_BOXES"], _DIMS["DOF_JROWS"]
+NBDOF = _DIMS["NBDOF"]
 _F, _I = ctypes.c_float, ctypes.c_int
 
 
@@ -1021,7 +1022,6 @@ class K1Const(ctypes.Structure):
         ("body_pos", _F * 3 * NBODY), ("body_quat", _F * 4 * NBODY),
         ("body_mass", _F * NBODY), ("body_ipos", _F * 3 * NBODY),
         ("body_iquat", _F * 4 * NBODY), ("body_inertia", _F * 3 * NBODY),
-        ("mask", _F * NV * NBODY),
         ("jnt_type", _I * NJNT), ("jnt_body", _I * NJNT),
         ("jnt_qposadr", _I * NJNT), ("jnt_dofadr", _I * NJNT),
         ("jnt_axis", _F * 3 * NJNT), ("jnt_pos", _F * 3 * NJNT),
@@ -1063,6 +1063,16 @@ class K1Const(ctypes.Structure):
         # K1e: per slot its wheel (-1: a hull slot) and invweight
         ("slot_wheel", _I * NSLOT), ("slot_iw", _F * NSLOT),
         ("plane_mu", _F),
+        # position of each dof in the elimination order (order's inverse)
+        ("order_inv", _I * NV),
+        # per body its ancestor dofs as bits, and its depth in the tree
+        ("body_dofs", ctypes.c_uint32 * NBODY), ("body_depth", _I * NBODY),
+        ("max_depth", _I),
+        # the (v, w), v < w, of each entry above an NV x NV diagonal, row by
+        # row; per dof the joint rows that touch it (ascending, -1 padded)
+        ("off_v", _I * (NV * (NV - 1) // 2)),
+        ("off_w", _I * (NV * (NV - 1) // 2)),
+        ("dof_jrows", _I * DOF_JROWS * NV),
     ]
 
 
@@ -1104,7 +1114,6 @@ def step_constants(model, fresh_statics=None) -> K1Const:
                  "body_iquat", "body_inertia", "jnt_axis", "jnt_pos",
                  "qpos0", "dof_damping", "dof_armature"):
         fill(getattr(c, name), getattr(sm, name))
-    fill(c.mask, sm.ancestor_mask)
     for name in ("jnt_type", "jnt_body", "jnt_qposadr", "jnt_dofadr",
                  "dof_body", "dof_qposadr", "order"):
         fill(getattr(c, name), getattr(sm, name))
@@ -1163,6 +1172,28 @@ def step_constants(model, fresh_statics=None) -> K1Const:
         c.slot_wheel[s] = wheel
         c.slot_iw[s] = iw
     c.plane_mu = float(sm.plane_friction[0])
+    fill(c.order_inv, [sm.order.index(v) for v in range(sm.nv)])
+    depth = [0] * sm.nbody
+    for b in range(1, sm.nbody):
+        depth[b] = depth[sm.body_parent[b]] + 1
+        c.body_dofs[b] = sum(1 << v for v in range(sm.nv)
+                             if sm.ancestor_mask[b][v] != 0)
+    fill(c.body_depth, depth)
+    c.max_depth = max(depth)
+    most = max(bin(d).count("1") for d in c.body_dofs)
+    if most > NBDOF:
+        raise ValueError(f"a body has {most} dofs; the step kernel holds at "
+                         f"most {NBDOF}")
+    off = [(v, w) for v in range(sm.nv) for w in range(v + 1, sm.nv)]
+    fill(c.off_v, [v for v, _ in off])
+    fill(c.off_w, [w for _, w in off])
+    for v in range(sm.nv):
+        rows = [r for r in range(NJROW) if c.jr_dof1[r] == v
+                or (c.jr_kind[r] == EQ and c.jr_dof2[r] == v)]
+        if len(rows) > DOF_JROWS:
+            raise ValueError(f"dof {v} has {len(rows)} joint rows; the step "
+                             f"kernel holds at most {DOF_JROWS}")
+        fill(c.dof_jrows[v], rows + [-1] * (DOF_JROWS - len(rows)))
 
     fill(c.wheel_body, sm.wheel_body)
     fill(c.wheel_pos, sm.wheel_pos)

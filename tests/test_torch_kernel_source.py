@@ -5,14 +5,17 @@ Each ``.cu`` file of ``mujoco_playground_tpu_torch/csrc`` also compiles
 without nvcc: its per-env program then runs one env after another behind the
 same C interface (``k1_set_constants``/``k1_launch``, ``k1e_*``, ``k2_*``,
 ``k3_launch``), so the wrappers' ``launch_k1``/``launch_k2``/``launch_k3``
-drive it with CPU pointers.  This holds the kernels' arithmetic, constant
-blocks and argument marshalling against the twins here; the nvcc build is
-held against them on the card by ``chip_smoke.py``.
+drive it with CPU pointers.  K1 and K1e run each env's group of K1_G lanes
+one lane after another between barriers, with the card's partition of the
+work over lanes and its reduction order.  This holds the kernels'
+arithmetic, constant blocks and argument marshalling against the twins
+here; the nvcc build is held against them on the card by ``chip_smoke.py``.
 
-Tolerances (same inputs, 3 chained steps at B=8): qpos, xpos and xquat
-1e-6; qvel 1e-5; qacc atol 1e-3 plus rtol 1e-4 (the error of an env scales
-with the largest accelerations of the solve, ~4e3 on wheel dofs, and the
-dense loops sum in another order than the twin's pruned program); env slab
+Tolerances (same inputs, 3 chained steps at B=8, 2 from wall contacts):
+qpos, xpos and xquat 1e-6; qvel 1e-5; qacc atol 1e-3 plus rtol 1e-4 (the
+error of an env scales with the largest accelerations of the solve, ~4e3
+on wheel dofs, and the dense loops sum in another order than the twin's
+pruned program); env slab
 1e-5, the goal angle through sin and cos; K2 1e-6.  K1e takes the same
 tolerances on parameters with a +-2 cm floor offset; K3 is held at qacc atol
 1e-3 plus rtol 1e-4 on the system of 3 compat-path steps.
@@ -28,6 +31,7 @@ import torch
 from mujoco_playground_tpu_torch.envs import (RandomizationConfig,
                                               make_ackermann_env,
                                               randomize_model)
+from mujoco_playground_tpu_torch.envs.poses import wall_poses
 from mujoco_playground_tpu_torch.ops import build
 from mujoco_playground_tpu_torch.ops import lidar as k2
 from mujoco_playground_tpu_torch.ops import newton as k3
@@ -121,6 +125,35 @@ def test_step_kernel_source_matches_plain_twin(host_libs, env, with_env,
     assert k1.step_fused.launches == k1.step_fused.launches_dr == 0
 
 
+@pytest.mark.parametrize("dr", [False, True], ids=["k1", "k1e"])
+def test_step_kernel_source_wall_contacts(host_libs, env, dr):
+    """The many-row workspace: poses pushed into a maze wall and 1-2 cm into
+    the floor, through the auto-reset step's flag set for 2 chained
+    steps."""
+    lib = host_libs["step_kernel_dr.cu" if dr else "step_kernel.cu"]
+    params = _dr_params(env) if dr else None
+    model = env.model
+    gen = torch.Generator().manual_seed(0)
+    ph = wall_poses(env, B, gen, sink=(0.01, 0.02))
+    q, v = _rows(ph.qpos), _rows(ph.qvel)
+    ws = _rows(ph.qacc_warmstart)
+    active = k1.contact_activity(model, q, params).sum(0)
+    assert int(active.max()) >= 12
+    st = env.reset(B)
+    env_in = _rows(torch.cat([st.odom_ref.position[:, :2], st.goal,
+                              st.prev_goal_distance[:, None], ph.qpos[:, :2]],
+                             -1))
+    for _ in range(2):
+        ctrl = torch.rand((model.nu, B), generator=gen) * 2 - 1
+        args = (model, q, v, ctrl, ws, env_in, env._env_statics(),
+                env._fresh_statics(), False)
+        want = k1.step_plain(*args, dr_params=params)
+        got = k1.launch_k1(lib, *args, None, dr_params=params)
+        for name, a, b in zip(TOL, got, want):
+            _compare(name, a, b, model)
+        q, v, ws = want[0], want[1], want[4]
+
+
 @pytest.mark.parametrize("with_env,with_fresh,ws_compare",
                          [(True, True, True), (True, False, True),
                           (False, False, False)])
@@ -180,14 +213,16 @@ def test_dr_step_kernel_refuses_uncompiled_variants(host_libs, env, with_env,
               *([ctypes.c_float(0.0)] * 4), None) != 0
 
 
-def _staged_system(seed=0):
+@pytest.fixture(scope="module")
+def staged_system():
     """The Newton system of the compat path after 3 staged steps at B, as
-    the staged step assembles it, and the warm start it would take."""
+    the staged step assembles it, and the warm start it would take (read,
+    never written, by the tests that share it)."""
     cenv = make_ackermann_env("maze", "umaze", solver_iterations=4,
-                              ls_iterations=3, device="cpu", seed=seed,
+                              ls_iterations=3, device="cpu", seed=0,
                               reference_flat_manifold=True,
                               reference_wheel_patch=True)
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator().manual_seed(0)
     st = cenv.reset(B)
     for _ in range(3):
         st = cenv.step_autoreset_batch(st, torch.rand((B, 2), generator=g)
@@ -198,8 +233,9 @@ def _staged_system(seed=0):
 
 
 @pytest.mark.parametrize("warm", [True, False])
-def test_newton_kernel_source_matches_plain_twin(host_libs, warm):
-    args, ws = _staged_system()
+def test_newton_kernel_source_matches_plain_twin(host_libs, staged_system,
+                                                warm):
+    args, ws = staged_system
     ws = ws if warm else None
     assert args[8].shape[0] == 72          # the wheel patch's slot count
     assert float(args[14].sum()) >= B      # rows in contact
@@ -210,8 +246,8 @@ def test_newton_kernel_source_matches_plain_twin(host_libs, warm):
     assert k3.newton_solve.launches == 0
 
 
-def test_newton_kernel_checks_its_inputs(host_libs):
-    args, ws = _staged_system()
+def test_newton_kernel_checks_its_inputs(host_libs, staged_system):
+    args, ws = staged_system
     lib = host_libs["newton_kernel.cu"]
     bad = list(args)
     bad[8] = torch.zeros((73,) + args[8].shape[1:])
