@@ -18,13 +18,20 @@ ls_iterations=3)`` with uniform random actions:
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
 outputs are finite, and times it with CUDA events.  Then each kernel is
-held against its twin at the paths' shapes and timed beside its bound.  It
-prints one JSON line of kernel numbers and, last, the device line.  Exits
-non-zero on any failure, and when no CUDA device exists.
+held against its twin at the paths' shapes, launched a second time on the
+same inputs (the bits must repeat) and timed beside its bound twice: by
+CUDA events around each wrapper call (``ms``, the host's launch path
+included, as the plain twins are timed) and by one replay of a CUDA graph
+of the calls (``device_ms``, the kernel alone).  K3 is also held against its twin with every
+contact row in contact, which overflows its block's pool of rows.  It
+prints the kernels' ptxas lines and occupancy, one JSON line of kernel
+numbers and, last, the device line.  Exits non-zero on any failure, and
+when no CUDA device exists.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -109,6 +116,39 @@ def cuda_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def kernel_times(events):
+    """(device us, count, name) of each kernel in a profiler's
+    key_averages(), the largest first.  Operator entries are left out:
+    their device time is that of the kernels they launched, which the trace
+    lists as well."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_device_time_total, e.count, e.key) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+
+
+def graph_ms(fn, reps):
+    """Mean device ms per call of fn, timed by CUDA events around one replay
+    of a CUDA graph of reps calls: no host work between the launches, so a
+    kernel shorter than its wrapper's host path is timed by itself.  fn
+    launches on the current stream and allocates only through PyTorch."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -350,6 +390,36 @@ def k1_occupancy_report(build):
     return rows
 
 
+def occupancy_line(lib, name):
+    """Shared bytes per block and resident warps per SM of a kernel
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
+    ``name`` export), or None where the library does not export it."""
+    import ctypes
+    fn = getattr(lib, name, None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(out)
+    if err != 0:
+        fail(f"{name}: CUDA error {err}")
+    return (f"{out[0]} B shared per block of {out[1]} threads, {out[2]} "
+            f"blocks = {out[2] * out[1] // 32} warps per SM")
+
+
+def k23_occupancy_report(build):
+    """K2's and K3's occupancy lines."""
+    rows = []
+    for src, name in (("lidar_kernel.cu", "k2_occupancy"),
+                      ("newton_kernel.cu", "k3_occupancy")):
+        line = occupancy_line(build.load(src), name)
+        if line is None:
+            fail(f"{src} does not export {name}")
+        rows.append(f"{src}: {line}")
+    return rows
+
+
 def chol_ops(pat, order):
     """(factor, solve) float32 operations of the Cholesky of an SPD matrix
     whose structural nonzeros are ``pat``, eliminated in ``order``, fill-in
@@ -504,9 +574,7 @@ def profile_steps(label, step, n, card):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - w0) * 1e6
-    kern = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+    kern = kernel_times(prof.key_averages())
     busy_us = sum(k[0] for k in kern)
     print(f"profile of {n} {label} steps: wall {wall_us / n:.1f} us/step, "
           f"device busy {busy_us / n:.1f} us/step, idle share "
@@ -543,7 +611,7 @@ def main():
           f"{build.SOURCE_FLAGS})")
     for row in ptxas_report(logs):
         print(f"  ptxas {row}")
-    for row in k1_occupancy_report(build):
+    for row in k1_occupancy_report(build) + k23_occupancy_report(build):
         print(f"  occupancy {row}")
     print(f"card: {card}")
 
@@ -651,6 +719,15 @@ def main():
           f"{int(active.max())})")
     check_k3(f"B={B_CHECK}", k3.newton_solve(*sys_args, warmstart=sys_ws),
              k3.newton_solve_plain(*sys_args, warmstart=sys_ws), failures)
+    # the same system with every contact row in contact: K3's block pool
+    # overflows, and an env whose rows do not fit runs them through its
+    # window of the pool in chunks
+    dense = list(sys_args)
+    dense[14] = torch.ones_like(sys_args[14])
+    check_k3(f"all {sys_args[8].shape[0]} rows in contact B={B_CHECK}",
+             k3.newton_solve(*dense, warmstart=sys_ws),
+             k3.newton_solve_plain(*dense, warmstart=sys_ws), failures)
+    del dense
     if failures:
         fail(f"kernels disagree with their plain twins: {failures}")
 
@@ -792,8 +869,11 @@ def main():
                           *args[6:])
     k1_err = check_k1(f"main B={B_MAIN}", got, want, model, failures)
     check_repeat("K1", got, k1.step_fused(*args), failures)
-    k2_err = check_k2(f"B={B_MAIN}", k2.lidar(model, xp, xq),
-                      k2.lidar_plain(model, xp, xq), failures)
+    got_k2 = k2.lidar(model, xp, xq)
+    k2_err = check_k2(f"B={B_MAIN}", got_k2, k2.lidar_plain(model, xp, xq),
+                      failures)
+    check_repeat("K2", [got_k2], [k2.lidar(model, xp, xq)], failures)
+    del got_k2
     dph = dstates.physics
     dparams = engine.dr_params(dr_env.models, model, B_MAIN)
     d_env_in = torch.cat([dstates.odom_ref.position[:, :2], dstates.goal,
@@ -813,10 +893,14 @@ def main():
     sys_args = engine.newton_inputs(cenv.model, cph)
     sys_ws = cph.qacc_warmstart.T.contiguous()
     active = sys_args[14].sum(0)
-    k3_err = check_k3(f"B={B_MAIN}", k3.newton_solve(*sys_args,
-                                                      warmstart=sys_ws),
+    got_k3 = k3.newton_solve(*sys_args, warmstart=sys_ws)
+    k3_err = check_k3(f"B={B_MAIN}", got_k3,
                       k3.newton_solve_plain(*sys_args, warmstart=sys_ws),
                       failures, k3_witness(sys_args, sys_ws, gen))
+    check_repeat("K3", [got_k3], [k3.newton_solve(*sys_args,
+                                                  warmstart=sys_ws)],
+                 failures)
+    del got_k3
     if failures:
         fail(f"kernels disagree with their plain twins: {failures}")
     # how far the kernel and the float32 twin are from the float64 twin
@@ -827,14 +911,22 @@ def main():
               f"{float((g.double() - x).abs().max()):.3e}, max |f32 twin - "
               f"f64| {float((w.double() - x).abs().max()):.3e}")
     del got, want, exact
-    k1_ms = cuda_ms(lambda: k1.step_fused(*args), 20)
+    # ms: CUDA events around each wrapper call, host path included (the
+    # method of every earlier kernels line); device_ms: one replay of a CUDA
+    # graph of the calls, the kernel alone
+    k1_call = functools.partial(k1.step_fused, *args)
+    k2_call = functools.partial(k2.lidar, model, xp, xq)
+    k1e_call = functools.partial(k1.step_fused, *dargs, dr_params=dparams)
+    k3_call = functools.partial(k3.newton_solve, *sys_args,
+                                warmstart=sys_ws)
+    k1_ms, k1_dev_ms = cuda_ms(k1_call, 20), graph_ms(k1_call, 20)
     k1_plain_ms = cuda_ms(lambda: k1.step_plain(*args), 2)
-    k2_ms = cuda_ms(lambda: k2.lidar(model, xp, xq), 50)
+    k2_ms, k2_dev_ms = cuda_ms(k2_call, 50), graph_ms(k2_call, 50)
     k2_plain_ms = cuda_ms(lambda: k2.lidar_plain(model, xp, xq), 3)
-    k1e_ms = cuda_ms(lambda: k1.step_fused(*dargs, dr_params=dparams), 20)
+    k1e_ms, k1e_dev_ms = cuda_ms(k1e_call, 20), graph_ms(k1e_call, 20)
     k1e_plain_ms = cuda_ms(lambda: k1.step_plain(*dargs, dr_params=dparams),
                            2)
-    k3_ms = cuda_ms(lambda: k3.newton_solve(*sys_args, warmstart=sys_ws), 20)
+    k3_ms, k3_dev_ms = cuda_ms(k3_call, 20), graph_ms(k3_call, 20)
     k3_plain_ms = cuda_ms(
         lambda: k3.newton_solve_plain(*sys_args, warmstart=sys_ws), 2)
 
@@ -860,42 +952,47 @@ def main():
     k3_flop = k3_ops(model.nv, jg, na, cenv.model.solver_iterations,
                      cenv.model.ls_iterations, True)
     k3_bound, k3_by = bound_ms(k3_env_bytes * B_MAIN, k3_flop * B_MAIN)
-    print(f"K1: {k1_ms:.4f} ms (plain {k1_plain_ms:.2f} ms, bound "
+    print(f"K1: {k1_ms:.4f} ms per call, {k1_dev_ms:.4f} ms on the device "
+          f"(plain {k1_plain_ms:.2f} ms, bound "
           f"{k1_bound:.5f} ms by {k1_by}: {k1_flop:.0f} operations per env"
           f" with {sum(slot_active):.2f} active contact rows per env); K2: "
-          f"{k2_ms:.4f} ms (plain {k2_plain_ms:.2f} ms, bound "
+          f"{k2_ms:.4f} ms per call, {k2_dev_ms:.4f} ms on the device "
+          f"(plain {k2_plain_ms:.2f} ms, bound "
           f"{k2_bound:.5f} ms by {k2_by}) at B={B_MAIN} ({card})")
-    print(f"K1e: {k1e_ms:.4f} ms (plain {k1e_plain_ms:.2f} ms, bound "
+    print(f"K1e: {k1e_ms:.4f} ms per call, {k1e_dev_ms:.4f} ms on the "
+          f"device (plain {k1e_plain_ms:.2f} ms, bound "
           f"{k1e_bound:.5f} ms by {k1e_by}: {k1e_bytes / B_MAIN:.0f} B and "
           f"{k1e_flop:.0f} operations per env with {sum(slot_active_e):.2f}"
-          f" active contact rows per env); K3: {k3_ms:.4f} ms (plain "
+          f" active contact rows per env); K3: {k3_ms:.4f} ms per call, "
+          f"{k3_dev_ms:.4f} ms on the device (plain "
           f"{k3_plain_ms:.2f} ms, bound {k3_bound:.5f} ms by {k3_by}: "
           f"{k3_env_bytes:.0f} B and {k3_flop:.0f} operations per env "
           f"with {na:.2f} of "
           f"{sys_args[8].shape[0]} contact rows in contact) at B={B_MAIN} "
           f"({card})")
 
-    def entry(name, source, replaces, n, err, ms, plain, bound, by):
+    def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",
                 "source": f"mujoco_playground_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain, "bound_ms": bound,
-                "bound_by": by, "library_ms": None}
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
 
     step_src = "mujoco_playground_tpu/ops/step_pallas.py:955"
     print(json.dumps({"kernels": [
         entry("K1 step (fused env + fresh scan)", "step_kernel.cu", step_src,
-              launches["K1"], k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by),
+              launches["K1"], k1_err, k1_ms, k1_dev_ms, k1_plain_ms,
+              k1_bound, k1_by),
         entry("K1e step with domain-randomized parameters",
               "step_kernel_dr.cu", step_src, launches_dr["K1e"], k1e_err,
-              k1e_ms, k1e_plain_ms, k1e_bound, k1e_by),
+              k1e_ms, k1e_dev_ms, k1e_plain_ms, k1e_bound, k1e_by),
         entry("K2 lidar", "lidar_kernel.cu",
               "mujoco_playground_tpu/ops/lidar_pallas.py:114", launches["K2"],
-              k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by),
+              k2_err, k2_ms, k2_dev_ms, k2_plain_ms, k2_bound, k2_by),
         entry("K3 Newton solve (staged step)", "newton_kernel.cu",
               "mujoco_playground_tpu/ops/newton_pallas.py:366",
-              launches_st["K3"], k3_err, k3_ms, k3_plain_ms, k3_bound,
-              k3_by),
+              launches_st["K3"], k3_err, k3_ms, k3_dev_ms, k3_plain_ms,
+              k3_bound, k3_by),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

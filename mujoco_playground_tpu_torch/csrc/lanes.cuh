@@ -1,6 +1,7 @@
 // Scalar helpers shared by kernels K1 (step_kernel.cu) and K2
 // (lidar_kernel.cu): vectors and quaternions as plain float arrays in one
-// thread.  These are the dense counterparts of ops/lanes.py.
+// thread.  These are the dense counterparts of ops/lanes.py.  The HD and
+// KCONST macros below serve every kernel source, K3's too.
 //
 // The same sources also compile as host C++ (no __CUDACC__): HD functions
 // become plain inline functions and the constant blocks plain globals, so

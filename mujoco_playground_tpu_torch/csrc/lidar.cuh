@@ -78,14 +78,3 @@ HD float lidar_site(const LidarConst& L, int i, const float* bp,
                 1.0f - 2.0f * (x * x + y * y)};
   return lidar_beam(L, o, d, L.cutoff[i], plane_z);
 }
-
-// All NSITE readings given every body's frame: xpos [NBODY][3], xquat
-// [NBODY][4], and the floor height.  Reading i goes to out[i * stride].
-HD void lidar_scan(const LidarConst& L, const float (*xpos)[3],
-                   const float (*xquat)[4], float* out, long stride,
-                   float plane_z) {
-  for (int i = 0; i < NSITE; ++i) {
-    int b = L.site_body[i];
-    out[i * stride] = lidar_site(L, i, xpos[b], xquat[b], plane_z);
-  }
-}

@@ -8,33 +8,47 @@
 // writes 72 (512 B), but runs 72 beams x (plane + nbox slab tests), ~27
 // FLOP per beam-box pair; at the umaze arena's 6 boxes that is ~14 kFLOP
 // per env against 512 B, far above the card's ~20 FLOP/B float32 balance.
-// Design: one env per thread, so thread b reads x[i*B + b] and every load
-// and store coalesces across the warp; the scene and site constants sit in
-// __constant__ memory, which broadcasts when all threads of a warp read the
-// same address, as they all do here; the box loop runs over the scene's
-// runtime box count.
+// Design: one thread per (beam, env), 72 B threads in all.  A block takes
+// K2_BEAMS beams of K2_ENVS consecutive envs, one warp per beam (threadIdx
+// .x the env, threadIdx.y the beam).  A thread reads its site's body frame
+// (7 floats, x[r*B + b]: the warp's loads coalesce, and the block's other
+// beams find the lines in L1), runs lidar_site and writes out[i*B + b]
+// (coalesced).  All threads of a warp read the same site's and scene's
+// constants, so the __constant__ reads broadcast; the box loop runs over
+// the scene's runtime box count.  The beams of an env are independent, so
+// nothing is reduced and two launches give the same bits.
 #include "lidar.cuh"
+
+#define K2_ENVS 32  // envs per block (a warp)
+#define K2_BEAMS 8  // beams per block
+#define K2_THREADS (K2_ENVS * K2_BEAMS)
 
 KCONST LidarConst c_lidar;
 
-// The scan of env b: reads column b of xpos/xquat, writes column b of out.
-HD void k2_env(int b, long B, const float* xpos, const float* xquat,
-               float* out) {
-  float bp[NBODY][3], bq[NBODY][4];
-  for (int i = 0; i < NBODY; ++i) {
-    for (int k = 0; k < 3; ++k) bp[i][k] = xpos[(3 * i + k) * B + b];
-    for (int k = 0; k < 4; ++k) bq[i][k] = xquat[(4 * i + k) * B + b];
-  }
-  lidar_scan(c_lidar, bp, bq, out + b, B, c_lidar.plane_z);
+// Beam i of env b: reads column b of its body's rows of xpos/xquat, writes
+// out[i*B + b].
+HD void k2_beam(int i, long b, long B, const float* xpos, const float* xquat,
+                float* out) {
+  int body = c_lidar.site_body[i];
+  float bp[3], bq[4];
+#ifdef __CUDACC__
+  for (int k = 0; k < 3; ++k) bp[k] = __ldg(xpos + (3 * body + k) * B + b);
+  for (int k = 0; k < 4; ++k) bq[k] = __ldg(xquat + (4 * body + k) * B + b);
+#else
+  for (int k = 0; k < 3; ++k) bp[k] = xpos[(3 * body + k) * B + b];
+  for (int k = 0; k < 4; ++k) bq[k] = xquat[(4 * body + k) * B + b];
+#endif
+  out[i * B + b] = lidar_site(c_lidar, i, bp, bq, c_lidar.plane_z);
 }
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(K2_THREADS)
     k2_kernel(const float* __restrict__ xpos, const float* __restrict__ xquat,
               float* __restrict__ out, int B) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) k2_env(b, B, xpos, xquat, out);
+  long b = (long)blockIdx.x * K2_ENVS + threadIdx.x;
+  int i = blockIdx.y * K2_BEAMS + threadIdx.y;
+  if (b < B && i < NSITE) k2_beam(i, b, B, xpos, xquat, out);
 }
 
 extern "C" {
@@ -48,16 +62,25 @@ int k2_set_constants(const void* blob, size_t size) {
 
 int k2_launch(const float* xpos, const float* xquat, float* out, int B,
               cudaStream_t stream) {
-  const int threads = 128;
   if (B > 0)
-    k2_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-        xpos, xquat, out, B);
+    k2_kernel<<<dim3((B + K2_ENVS - 1) / K2_ENVS,
+                     (NSITE + K2_BEAMS - 1) / K2_BEAMS),
+                dim3(K2_ENVS, K2_BEAMS), 0, stream>>>(xpos, xquat, out, B);
   return (int)cudaGetLastError();
+}
+
+// out[0] shared bytes per block, out[1] threads per block, out[2] resident
+// blocks per SM.  Returns the CUDA error, 0 on success.
+int k2_occupancy(int* out) {
+  out[0] = 0;
+  out[1] = K2_THREADS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], k2_kernel, K2_THREADS, 0);
 }
 
 }  // extern "C"
 
-#else  // host build: the same per-env program, one env after another
+#else  // host build: the same per-beam program, beam by beam, env by env
 
 extern "C" {
 
@@ -71,7 +94,15 @@ int k2_set_constants(const void* blob, size_t size) {
 
 int k2_launch(const float* xpos, const float* xquat, float* out, int B,
               void*) {
-  for (int b = 0; b < B; ++b) k2_env(b, B, xpos, xquat, out);
+  for (int i = 0; i < NSITE; ++i)
+    for (int b = 0; b < B; ++b) k2_beam(i, b, B, xpos, xquat, out);
+  return 0;
+}
+
+int k2_occupancy(int* out) {
+  out[0] = 0;
+  out[1] = K2_THREADS;
+  out[2] = 0;
   return 0;
 }
 

@@ -1,4 +1,4 @@
-// Kernel K1's model constants, its lane-group machinery, and the per-item
+// Kernel K1's model constants, its lane groups (group.cuh), and the per-item
 // pieces of its smooth-dynamics and collision stages (see step_kernel.cuh
 // for the program and the kernel).
 //
@@ -9,6 +9,7 @@
 // program, these loops skip them at run time (body_dofs, body_inert).
 #pragma once
 
+#include "group.cuh"
 #include "lidar.cuh"
 
 #define JNT_FREE 0
@@ -137,109 +138,12 @@ __device__ K1Const g_k1;
 
 // ---------------------------------------------------------- lane groups
 
-// One lane of the group that computes an env.
-struct Grp {
-  int lane;
-  unsigned mask;  // the group's lanes in the warp
-};
+// K1's groups of K1_G lanes (group.cuh).
+typedef Group<K1_G> Grp;
+template <class T>
+using PerLane = PerLaneG<T, K1_G>;
 
 #define FOR_ITEMS(i, lane, n) for (int i = (lane); i < (n); i += K1_G)
-
-#ifdef __CUDACC__
-#define UNROLL _Pragma("unroll")
-HD int popc64(uint64_t x) { return __popcll(x); }
-HD int popc32(uint32_t x) { return __popc(x); }
-HD int lowest_bit(uint32_t x) { return __ffs(x) - 1; }
-#else
-#define UNROLL
-HD int popc64(uint64_t x) { return __builtin_popcountll(x); }
-HD int popc32(uint32_t x) { return __builtin_popcount(x); }
-HD int lowest_bit(uint32_t x) { return __builtin_ctz(x); }
-#endif
-
-// One stage: f(lane) does the lane's items (item i goes to lane i % K1_G),
-// then the group waits for all its lanes.  A stage reads what earlier
-// stages wrote to the workspace and writes locations no other lane of the
-// same stage touches; nothing a lane computes outlives its stage except in
-// the workspace.  The host build calls f for lanes 0..K1_G-1 in turn, so
-// it runs the card's partition and its reduction order.
-#ifdef __CUDACC__
-template <class F>
-__device__ __forceinline__ void stage(const Grp& g, F&& f) {
-  f(g.lane);
-  __syncwarp(g.mask);
-}
-#else
-template <class F>
-static inline void stage(const Grp&, F&& f) {
-  for (int l = 0; l < K1_G; ++l) f(l);
-}
-#endif
-
-// A stage of one lane: the scalar tails.
-template <class F>
-HD void single(const Grp& g, F&& f) {
-  stage(g, [&](int lane) {
-    if (lane == 0) f();
-  });
-}
-
-// A value each lane keeps in a register from one lanes() call to the next;
-// the host build, which runs the lanes one after another, keeps one copy
-// per lane.
-template <class T>
-struct PerLane {
-#ifdef __CUDACC__
-  T v;
-  __device__ __forceinline__ T& at(int) { return v; }
-#else
-  T v[K1_G];
-  T& at(int lane) { return v[lane]; }
-#endif
-};
-
-// f(lane) on every lane of the group, with no barrier after it: for work
-// on PerLane registers, exchanged with from_lane().  A lane may read
-// another lane's registers only where no lane writes them in the same call.
-#ifdef __CUDACC__
-template <class F>
-__device__ __forceinline__ void lanes(const Grp& g, F&& f) {
-  f(g.lane);
-}
-// Lane src's value of f (a warp shuffle; every lane of the group calls it).
-template <class F>
-__device__ __forceinline__ float from_lane(const Grp& g, int src, F&& f) {
-  return __shfl_sync(g.mask, f(g.lane), src, K1_G);
-}
-#else
-template <class F>
-static inline void lanes(const Grp&, F&& f) {
-  for (int l = 0; l < K1_G; ++l) f(l);
-}
-template <class F>
-static inline float from_lane(const Grp&, int src, F&& f) {
-  return f(src);
-}
-#endif
-
-// The sum of x over the group's lanes, the same bits on every lane: a fixed
-// butterfly (lane l adds lane l ^ o's partial for o = G/2, ..., 1).
-HD float group_sum(const Grp& g, PerLane<float>& x) {
-#ifdef __CUDACC__
-  float s = x.v;
-  UNROLL for (int o = K1_G / 2; o > 0; o >>= 1)
-    s = s + __shfl_xor_sync(g.mask, s, o, K1_G);
-  return s;
-#else
-  float s[K1_G], n[K1_G];
-  for (int l = 0; l < K1_G; ++l) s[l] = x.v[l];
-  for (int o = K1_G / 2; o > 0; o >>= 1) {
-    for (int l = 0; l < K1_G; ++l) n[l] = s[l] + s[l ^ o];
-    for (int l = 0; l < K1_G; ++l) s[l] = n[l];
-  }
-  return s[0];
-#endif
-}
 
 // Whether dof v moves body b (an ancestor dof of b).
 HD bool moves(uint32_t body_dofs, int v) { return (body_dofs >> v) & 1u; }

@@ -246,6 +246,47 @@ def test_newton_kernel_source_matches_plain_twin(host_libs, staged_system,
     assert k3.newton_solve.launches == 0
 
 
+def _row_sets(args, ws, case):
+    """The staged system with other rows in contact: every row of every env
+    (the pool overflows), disjoint sets of rows per env of one block with
+    counts that leave the last env a window of the pool smaller than its
+    rows, so it runs them in chunks (and reference accelerations that make
+    the rows push), or 13 envs (the fixture's 8 and its first 5 again: the
+    last block holds 5 envs)."""
+    args = list(args)
+    if case == "b13":
+        cols = torch.tensor(list(range(B)) + list(range(5)))
+        return ([a[..., cols].contiguous() if isinstance(a, torch.Tensor)
+                 and a.dim() > 1 else a for a in args],
+                ws[:, cols].contiguous())
+    act = torch.zeros_like(args[14])
+    if case == "all_rows":
+        act[:] = 1.0
+    else:
+        # env e: rows e, e + 8, ... (9 at most), 55 rows in all
+        for e, n in enumerate([2, 9, 3, 9, 9, 5, 9, 9]):
+            act[e::B, e][:n] = 1.0
+        # reference accelerations of 10 m/s^2, so that the rows push
+        args[11] = torch.where(act[:, None, :] > 0, 10.0, args[11])
+    args[14] = act
+    return args, ws
+
+
+@pytest.mark.parametrize("case", ["all_rows", "disjoint", "b13"])
+def test_newton_kernel_source_row_sets(host_libs, staged_system, case):
+    args, ws = _row_sets(*staged_system, case)
+    act = args[14]
+    if case == "disjoint":
+        assert int(act.sum()) > 48 and float((act.sum(1) > 1).sum()) == 0
+    if case == "all_rows":
+        assert int(act.sum()) == 72 * B
+    want = k3.newton_solve_plain(*args, warmstart=ws)
+    got = k3.launch_k3(host_libs["newton_kernel.cu"], *args, ws, None)
+    assert got.shape == want.shape and bool(torch.isfinite(want).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3,
+                               rtol=1e-4)
+
+
 def test_newton_kernel_checks_its_inputs(host_libs, staged_system):
     args, ws = staged_system
     lib = host_libs["newton_kernel.cu"]
@@ -273,6 +314,30 @@ def test_lidar_kernel_source_matches_plain_twin(host_libs, env):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
     assert (want > 0).any()
     assert k2.lidar.launches == 0
+
+
+def test_lidar_kernel_source_no_hit_and_cutoff(host_libs, env):
+    """B=13 (a partial block of envs): env 0 high above the maze (level
+    beams hit nothing: -1), env 1 as high and pitched 10 degrees (beams
+    that meet the floor beyond the cutoff read the cutoff), the rest
+    reset frames."""
+    model = env.model
+    n = 13
+    st = env.reset(n)
+    xpos, xquat = _rows(st.physics.xpos), _rows(st.physics.xquat)
+    for e in (0, 1):
+        xpos[3:6, e] = torch.tensor([0.0, 0.0, 5.0])
+    half = np.deg2rad(10.0) / 2
+    xquat[4:8, 0] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    xquat[4:8, 1] = torch.tensor([np.cos(half), 0.0, np.sin(half), 0.0])
+    got = k2.launch_k2(host_libs["lidar_kernel.cu"], model, xpos, xquat,
+                       None)
+    want = k2.lidar_plain(model, xpos, xquat)
+    cutoff = float(model.sensor_cutoff.max())
+    assert bool((want[:, 0] == -1.0).all())
+    assert bool((want[:, 1] == cutoff).any())
+    assert bool((want[:, 1] == -1.0).any())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
 def test_kernel_wrappers_check_their_inputs(host_libs, env):
