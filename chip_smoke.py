@@ -13,7 +13,15 @@ ls_iterations=3)`` with uniform random actions:
 * path A: ``DomainRandomizedEnv`` for 200 steps (kernel K1e);
 * path B: the same env with the compat manifolds
   (``reference_flat_manifold``, ``reference_wheel_patch``): the staged step
-  through kernel K3, the observation through K2.
+  through kernel K3, the observation through K2;
+* the trainer: ``rl.train.main`` with the README's PPO recipe at 4096
+  umaze envs (``--algo ppo --maze umaze --num-envs 4096 --normalize
+  --anneal-lr``) for 3 iterations, K1 on every rollout and evaluation step
+  and K2 at every batched reset; then a resume for one more iteration, a
+  resumed run held against a straight one, one minibatch update on the
+  card held against the same update on the CPU (and, as a control that
+  the check sees TF32, the same with TF32 matmuls on, which must miss),
+  and the iteration's times.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -30,13 +38,17 @@ when no CUDA device exists.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -53,6 +65,22 @@ SAME_STEPS = 10       # of those, from one shared start with shared actions
 STAGED_STEPS = 200    # path B env steps (spawned robots land by ~100)
 STAGED_WARMUP = 20
 STAGED_PROFILE = 5
+# the trainer phase: the README's PPO recipe (64x64 tanh ActorCritic, T=32,
+# 10 epochs x 32 minibatches, blocks of 128 rows, 4 Newton and 3 line-search
+# iterations) at 4096 umaze envs
+TRAIN_FLAGS = ["--algo", "ppo", "--maze", "umaze", "--num-envs", "4096",
+               "--normalize", "--seed", str(SEED)]
+TRAIN_ITERS = 3       # iterations of the main run; the resume adds one
+TIMED_ITERS = 3       # iterations timed by CUDA events after one warm-up
+# one minibatch update on the card against the same update on the CPU:
+# loss parts within 1e-5 (abs, and of their size), gradients within 1e-4
+# of each tensor's largest |gradient|, parameters after the Adam step
+# within 1e-6; the same update with TF32 matmuls on must miss one of them
+UPDATE_TOL = dict(loss=1e-5, grad=1e-4, param=1e-6)
+# a run resumed from a checkpoint against the straight run: parameters
+# within 1e-6 (the card's kernels and torch's ops here repeat their bits,
+# so the runs should agree bitwise; the line says whether they do)
+RESUME_TOL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores, at the 700 W power limit
@@ -125,10 +153,12 @@ def kernel_times(events):
     """(device us, count, name) of each kernel in a profiler's
     key_averages(), the largest first.  Operator entries are left out:
     their device time is that of the kernels they launched, which the trace
-    lists as well."""
+    lists as well; so are user annotations on the device's timeline (such
+    as ``Optimizer.step#Adam.step``), which span kernels listed too."""
     from torch.autograd import DeviceType
     return sorted(((e.self_device_time_total, e.count, e.key) for e in events
                    if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.self_device_time_total > 0), reverse=True)
 
 
@@ -583,6 +613,281 @@ def profile_steps(label, step, n, card):
         print(f"  {us / n:9.1f} us/step  x{count // n:<3d} {name[:90]}")
 
 
+def _tree_diff(a, b):
+    """(largest |a - b| over float tensors, whether every leaf is equal)
+    of two nested dicts/lists of tensors and plain values."""
+    if isinstance(a, dict):
+        out = [_tree_diff(a[k], b[k]) for k in a]
+    elif isinstance(a, (list, tuple)):
+        out = [_tree_diff(x, y) for x, y in zip(a, b)]
+    elif isinstance(a, torch.Tensor):
+        d = (float((a.double() - b.double()).abs().max())
+             if a.is_floating_point() and a.numel() else 0.0)
+        return d, torch.equal(a, b)
+    else:
+        return 0.0, a == b
+    return (max((d for d, _ in out), default=0.0),
+            all(e for _, e in out))
+
+
+def trainer_phase(card, dev):
+    """The trainer through its CLI entry point at 4096 envs, its checks and
+    its times (module docstring)."""
+    from mujoco_playground_tpu_torch.rl import checkpoint as ckpt_lib
+    from mujoco_playground_tpu_torch.rl import networks, ppo
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    from mujoco_playground_tpu_torch.rl.evaluate import (deterministic_policy,
+                                                         evaluate_agent)
+    from torch.profiler import ProfilerActivity, profile
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def cli(run, steps, *extra):
+        return (TRAIN_FLAGS + ["--timesteps", str(steps), "--log-dir",
+                               os.path.join(work, run)] + list(extra))
+
+    def config_of(argv):
+        return train_lib.config_from_args(
+            train_lib.make_parser().parse_args(argv))
+
+    def latest(run):
+        return ckpt_lib.latest_checkpoint(
+            os.path.join(work, run, train_lib.CKPT_SUBDIR))
+
+    def load(run):
+        return torch.load(latest(run), map_location="cpu", weights_only=True)
+
+    cfg = config_of(cli("main", 0, "--anneal-lr"))
+    T, B = cfg.unroll_length, cfg.num_envs
+    spi = T * B
+    steps_main = TRAIN_ITERS * spi
+
+    # the parts of the launch counts: the env's settle at construction, and
+    # one evaluation (10 episodes, max_episode_steps steps each)
+    reset_counts()
+    env = train_lib.build_env(cfg, dev)
+    settle = read_counts()
+    net0 = train_lib.make_network(cfg, env)
+    reset_counts()
+    evaluate_agent(env, deterministic_policy(net0),
+                   num_episodes=cfg.eval_episodes)
+    one_eval = read_counts()
+    print(f"trainer parts: the env's settle launches {settle}; one "
+          f"evaluation of {cfg.eval_episodes} episodes x "
+          f"{cfg.max_episode_steps} steps launches {one_eval}; a rollout "
+          f"launches K1 {T} times")
+
+    def run_main(label, argv, iters):
+        reset_counts()
+        t0 = time.perf_counter()
+        train_lib.main(argv)
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = {"K1": settle["K1"] + iters * T + 2 * one_eval["K1"],
+                "K2": settle["K2"] + 1 + 2 * one_eval["K2"], "K1e": 0,
+                "K3": 0}
+        print(f"trainer {label}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{got}; expected {want} = settle + {iters} x {T} rollout "
+              f"steps + 2 evaluations (in the loop and main's), K2 at the "
+              f"init reset and each evaluation's reset")
+        if got != want:
+            fail(f"trainer {label}: launches {got}, expected {want}")
+
+    # the main run, then its resume for one more iteration
+    run_main("main run (3 iterations)", cli("main", steps_main,
+                                            "--anneal-lr"), TRAIN_ITERS)
+    if ckpt_lib.checkpoint_step(latest("main")) != steps_main:
+        fail(f"trainer: the last checkpoint is {latest('main')}, not step "
+             f"{steps_main}")
+    with open(os.path.join(work, "main", train_lib.CKPT_SUBDIR,
+                           "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    losses = [x[k] for x in lines if "policy_loss" in x for k in ppo.AUX_KEYS]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"trainer: metrics.jsonl losses {losses}")
+    saved = load("main")["network"]
+    moved = max(float((saved[k] - v.cpu()).abs().max())
+                for k, v in net0.state_dict().items())
+    print(f"trainer main run: checkpoint {os.path.basename(latest('main'))}, "
+          f"{len(lines)} metrics lines, losses finite, largest parameter "
+          f"move from the seed's init {moved:.4e}")
+    if not moved > 0:
+        fail("trainer: the parameters did not move")
+    run_main("resume (1 iteration)", cli("main", steps_main + spi,
+                                         "--anneal-lr", "--resume"), 1)
+    if ckpt_lib.checkpoint_step(latest("main")) != steps_main + spi:
+        fail(f"trainer: the resumed run's last checkpoint is "
+             f"{latest('main')}")
+
+    # a resumed run against the straight run, with a constant learning rate
+    # (--anneal-lr fits its schedule to each run's --timesteps, so a run
+    # resumed to another target follows another schedule by design)
+    train_lib.main(cli("split", steps_main))
+    train_lib.main(cli("split", steps_main + spi, "--resume"))
+    train_lib.main(cli("straight", steps_main + spi))
+    a, b = load("straight"), load("split")
+    d_params, same_params = _tree_diff(a["network"], b["network"])
+    _, same_all = _tree_diff(a, b)
+    print(f"trainer resume check: {TRAIN_ITERS} iterations + a resume for "
+          f"one against {TRAIN_ITERS + 1} straight: largest parameter "
+          f"difference {d_params:.3e} (tol {RESUME_TOL:g}); parameters "
+          f"bitwise equal: {same_params}; whole train state (optimizer, env "
+          f"states, norm statistics, generators) bitwise equal: {same_all}")
+    if not d_params <= RESUME_TOL:
+        fail("trainer: the resumed run departs from the straight run")
+
+    # the iteration's times, on the straight run's trained state
+    tcfg = config_of(cli("straight", steps_main + spi))
+    env = train_lib.build_env(tcfg, dev)
+    net = train_lib.make_network(tcfg, env)
+    ts = ppo.init_train_state(env, net, tcfg,
+                              torch.Generator(device=dev).manual_seed(SEED))
+    ts = ckpt_lib.restore_checkpoint(latest("straight"), ts)
+    rollout, update = ppo.make_train_fns(env, tcfg)
+    ts, data, _ = rollout(ts)
+    ts, _ = update(ts, data)
+    torch.cuda.synchronize()
+    # host syncs inside one iteration (CUDA's sync debug mode warns on each)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ts, data, _ = rollout(ts)
+            ts, _ = update(ts, data)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [str(w.message)[:120] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"trainer: host syncs in one iteration (rollout_gae + update): "
+          f"{len(syncs)} {syncs[:3]}")
+    if syncs:
+        fail("trainer: an iteration waits on the card")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    r_ms, u_ms = [], []
+    for _ in range(TIMED_ITERS):
+        ev[0].record()
+        ts, data, _ = rollout(ts)
+        ev[1].record()
+        ts, _ = update(ts, data)
+        ev[2].record()
+        torch.cuda.synchronize()
+        r_ms.append(ev[0].elapsed_time(ev[1]))
+        u_ms.append(ev[1].elapsed_time(ev[2]))
+    roll_ms, upd_ms = sum(r_ms) / TIMED_ITERS, sum(u_ms) / TIMED_ITERS
+    obs = ts.env_states.obs
+
+    @torch.no_grad()
+    def policy_step():
+        mean, log_std, _ = net(ppo.normalize_obs(ts.norm, obs))
+        networks.sample_action(mean, log_std, ts.generator)
+
+    fwd_ms = cuda_ms(policy_step, T) * T
+
+    def profiled(phase):
+        """(wall us, kernels) of one call of phase under torch.profiler."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            phase()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e6
+        return wall, kernel_times(prof.key_averages())
+
+    def rollout_phase():
+        nonlocal ts, data
+        ts, data, _ = rollout(ts)
+
+    def update_phase():
+        nonlocal ts
+        ts, _ = update(ts, data)
+
+    windows = [("rollout_gae", *profiled(rollout_phase)),
+               ("update", *profiled(update_phase))]
+    wall_us = sum(w for _, w, _ in windows)
+    busy_us = sum(us for _, _, kern in windows for us, _, _ in kern)
+    k1_us = sum(us for us, _, name in windows[0][2] if "k1_kernel" in name)
+    it_ms = roll_ms + upd_ms
+    each = lambda ms: ", ".join(f"{x:.2f}" for x in ms)  # noqa: E731
+    print(f"trainer iteration at B={B}, T={T} (mean of {TIMED_ITERS}): "
+          f"rollout_gae {roll_ms:.2f} ms (each: {each(r_ms)}), "
+          f"update {upd_ms:.2f} ms (each: {each(u_ms)}; "
+          f"{tcfg.ppo_epochs} x {tcfg.num_minibatches} minibatches, "
+          f"{upd_ms / (tcfg.ppo_epochs * tcfg.num_minibatches):.3f} ms "
+          f"each); training {spi / it_ms * 1e3:.0f} env-steps/s ({card})")
+    print(f"trainer: the policy forward and action draw, {T} per rollout, "
+          f"{fwd_ms:.2f} ms = {fwd_ms / roll_ms:.3f} of the rollout; "
+          f"profiled iteration: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}, "
+          f"K1 {k1_us / 1e3:.2f} ms on the device ({card})")
+    for label, wall, kern in windows:
+        n = sum(count for _, count, _ in kern)
+        busy = sum(us for us, _, _ in kern)
+        print(f"  profiled {label}: wall {wall / 1e3:.2f} ms, device busy "
+              f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall:.3f}, "
+              f"{n} kernel launches")
+        for us, count, name in kern[:6]:
+            print(f"    {us / 1e3:9.3f} ms  x{count:<5d} {name[:80]}")
+
+    # one minibatch update on the card against the same update on the CPU,
+    # with TF32 matmuls off (the port's setting), then with them on as a
+    # control: the check must see TF32
+    batch, advs, rets = data
+    take = ppo.make_epoch_shuffle(spi, tcfg.num_minibatches,
+                                  tcfg.shuffle_block_size, ts.generator, dev)
+    mb = {k: take(batch[k])[0] for k in ("obs", "action", "logp")}
+    adv, ret = take(advs)[0], take(rets)[0]
+
+    def card_vs_cpu(tf32):
+        """Loss-part, gradient and parameter differences of one minibatch
+        update from copies of ts's network and optimizer, card against
+        CPU, with TF32 matmuls on the card set to ``tf32``."""
+        nets = [copy.deepcopy(ts.network), copy.deepcopy(ts.network).cpu()]
+        opts = [ppo.make_optimizer(tcfg, n.parameters()) for n in nets]
+        for opt in opts:
+            opt.load_state_dict(copy.deepcopy(ts.optimizer.state_dict()))
+        allowed = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            aux_gpu = ppo.minibatch_step(nets[0], opts[0], tcfg, mb, adv,
+                                         ret).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allowed
+        aux_cpu = ppo.minibatch_step(nets[1], opts[1], tcfg,
+                                     {k: v.cpu() for k, v in mb.items()},
+                                     adv.cpu(), ret.cpu())
+        pairs = list(zip(nets[0].parameters(), nets[1].parameters()))
+        return dict(
+            loss=float(((aux_gpu - aux_cpu).abs()
+                        / (1 + aux_cpu.abs())).max()),
+            grad=max(float((p.grad.cpu() - q.grad).abs().max()
+                           / q.grad.abs().max().clamp_min(1e-30))
+                     for p, q in pairs),
+            param=max(float((p.detach().cpu() - q.detach()).abs().max())
+                      for p, q in pairs))
+
+    def within(d):
+        return all(d[k] <= UPDATE_TOL[k] for k in UPDATE_TOL)
+
+    for tf32 in (False, True):
+        d = card_vs_cpu(tf32)
+        role = "the control" if tf32 else "the check"
+        print(f"trainer minibatch update, card against CPU ({len(adv)} rows; "
+              f"TF32 matmuls allowed: {tf32}, {role}): loss parts "
+              f"{d['loss']:.3e} (tol {UPDATE_TOL['loss']:g}), gradients "
+              f"{d['grad']:.3e} of each tensor's largest (tol "
+              f"{UPDATE_TOL['grad']:g}), parameters {d['param']:.3e} (tol "
+              f"{UPDATE_TOL['param']:g}); within all three: {within(d)}")
+        if within(d) == tf32:
+            fail("trainer: the card's minibatch update departs from the "
+                 "CPU's" if not tf32 else
+                 "trainer: the card-against-CPU check does not see TF32")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one NVIDIA GPU")
@@ -970,6 +1275,9 @@ def main():
           f"with {na:.2f} of "
           f"{sys_args[8].shape[0]} contact rows in contact) at B={B_MAIN} "
           f"({card})")
+
+    # -- phase 5: the trainer ---------------------------------------------
+    trainer_phase(card, dev)
 
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",

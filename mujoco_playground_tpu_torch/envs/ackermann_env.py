@@ -203,12 +203,14 @@ class AckermannEnv:
             (float(t.qpos[0]), float(t.qpos[1])))
 
     # ------------------------------------------------------------------ reset
-    def reset_core(self, num_envs: int) -> EnvState:
+    def reset_core(self, num_envs: int,
+                   generator: Optional[torch.Generator] = None) -> EnvState:
         """A batch of fresh states without their observation (obs fields
         are zero placeholders): start and goal cells (start != goal) with
         +-cell_noise cell noise in a maze, a random goal on the open
-        floor."""
-        B, dtype, dev, g = num_envs, self.dtype, self.device, self.generator
+        floor.  Draws from ``generator`` (default: the env's own)."""
+        B, dtype, dev = num_envs, self.dtype, self.device
+        g = self.generator if generator is None else generator
         tpl = self._template
         if self.arena == "maze":
             n = self._free_cells.shape[0]
@@ -256,12 +258,14 @@ class AckermannEnv:
             goal_cell=goal_cell)
 
     def reset(self, num_envs: Optional[int] = None,
-              core: Optional[EnvState] = None) -> EnvState:
+              core: Optional[EnvState] = None,
+              generator: Optional[torch.Generator] = None) -> EnvState:
         """A batch of fresh states with their observation.  ``core`` (a
-        ``reset_core`` batch, e.g. another sampler's) skips the sampling.
-        The lidar comes from kernel K2 on the spawn frames."""
+        ``reset_core`` batch, e.g. another sampler's) skips the sampling;
+        ``generator`` replaces the env's own for it.  The lidar comes from
+        kernel K2 on the spawn frames."""
         if core is None:
-            core = self.reset_core(num_envs)
+            core = self.reset_core(num_envs, generator)
         obs, metrics = self._observe_batch(core.physics, core.odom_ref,
                                            core.goal)
         return core.replace(obs=obs, final_obs=obs, **metrics)

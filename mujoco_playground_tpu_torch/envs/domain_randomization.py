@@ -91,9 +91,20 @@ class DomainRandomizedEnv:
         self.models = randomize_model(self.env.model, generator,
                                       self.num_envs, self.rand_config)
 
+    @property
+    def generator(self) -> torch.Generator:
+        """The base env's reset generator."""
+        return self.env.generator
+
+    @property
+    def device(self) -> torch.device:
+        return self.env.device
+
     def reset(self, num_envs: Optional[int] = None,
-              core: Optional[EnvState] = None) -> EnvState:
-        return self.env.reset(num_envs or self.num_envs, core=core)
+              core: Optional[EnvState] = None,
+              generator: Optional[torch.Generator] = None) -> EnvState:
+        return self.env.reset(num_envs or self.num_envs, core=core,
+                              generator=generator)
 
     def step_batch(self, states: EnvState, actions) -> EnvState:
         return self.env.step_batch(states, actions, models=self.models,

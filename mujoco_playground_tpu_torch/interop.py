@@ -1,7 +1,10 @@
-"""Carry models and env states across from the JAX package as numpy.
+"""Carry models, env states and policies across from the JAX package as
+numpy.
 
 The port imports nothing of the JAX package; a caller that has both
 flattens the JAX objects to numpy itself and hands the arrays over by name.
+A JAX package checkpoint (Orbax) reaches the port only this way, in a
+process that has JAX to restore it.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from mujoco_playground_tpu_torch.envs.ackermann_env import EnvState
 from mujoco_playground_tpu_torch.physics.model import (ARRAY_FIELDS,
                                                        STATIC_FIELDS, Model)
 from mujoco_playground_tpu_torch.physics.state import State
+from mujoco_playground_tpu_torch.rl.ppo import NormState
 
 # dotted names of an EnvState's leaves, in declaration order
 ENV_STATE_FIELDS = tuple(
@@ -76,3 +80,36 @@ def env_state_to_arrays(state: EnvState) -> dict:
             v = getattr(v, part)
         out[name] = v.detach().cpu().numpy()
     return out
+
+
+def actor_critic_from_flax(params: dict) -> dict:
+    """A port ``ActorCritic`` ``state_dict`` from the JAX package's
+    ``ActorCritic`` parameters: the nested dict of numpy arrays that
+    ``network.init`` or an Orbax restore gives (with or without its top
+    ``"params"`` level).  A flax ``Dense`` kernel is (in, out), a torch
+    ``Linear`` weight (out, in): kernels are transposed."""
+    p = params.get("params", params)
+    out = {}
+
+    def dense(name, leaves):
+        out[f"{name}.weight"] = torch.tensor(
+            np.asarray(leaves["kernel"], np.float32).T.copy())
+        out[f"{name}.bias"] = torch.tensor(
+            np.asarray(leaves["bias"], np.float32))
+
+    for tower in ("pi_tower", "vf_tower"):
+        for layer in sorted(p[tower], key=lambda k: int(k.split("_")[1])):
+            dense(f"{tower}.{layer}", p[tower][layer])
+    dense("action_head", p["action_head"])
+    dense("value_head", p["value_head"])
+    out["log_std"] = torch.tensor(np.asarray(p["log_std"], np.float32))
+    return out
+
+
+def norm_state_from_arrays(d: dict, device) -> NormState:
+    """A port ``NormState`` from a JAX ``NormState``'s leaves as numpy, by
+    name."""
+    return NormState(**{
+        f.name: torch.tensor(np.asarray(d[f.name], np.float32),
+                             device=device)
+        for f in dataclasses.fields(NormState)})

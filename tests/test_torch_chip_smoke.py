@@ -32,6 +32,31 @@ def test_kernel_times_counts_each_kernel_once():
     assert sum(t for t, _, _ in got) == 12.0
 
 
+def test_kernel_times_leaves_out_user_annotations():
+    """A ``record_function`` range (the optimizer's step) shows on the
+    device's timeline spanning the kernels it launched: only the kernels
+    count."""
+    events = [_event("void multi_tensor_apply_kernel", DeviceType.CUDA, 4.0),
+              _event("Optimizer.step#Adam.step", DeviceType.CUDA, 9.0)]
+    events[1].is_user_annotation = True
+    assert chip_smoke.kernel_times(events) == [
+        (4.0, 1, "void multi_tensor_apply_kernel")]
+
+
+def test_tree_diff_reads_floats_and_bits():
+    """The resume check's comparison of two saved train states: the largest
+    float difference, and whether every leaf holds the same bits."""
+    a = {"net": {"w": torch.tensor([1.0, 2.0])}, "step": 3,
+         "gen": torch.tensor([7, 8], dtype=torch.uint8)}
+    b = {"net": {"w": torch.tensor([1.0, 2.5])}, "step": 3,
+         "gen": torch.tensor([7, 8], dtype=torch.uint8)}
+    assert chip_smoke._tree_diff(a, a) == (0.0, True)
+    assert chip_smoke._tree_diff(a, b) == (0.5, False)
+    b["net"]["w"] = a["net"]["w"].clone()
+    b["gen"] = torch.tensor([7, 9], dtype=torch.uint8)
+    assert chip_smoke._tree_diff(a, b) == (0.0, False)
+
+
 @pytest.mark.skipif(torch.cuda.is_available(),
                     reason="with a CUDA device chip_smoke.py runs in full")
 def test_chip_smoke_fails_without_a_card(tmp_path):

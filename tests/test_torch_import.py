@@ -24,9 +24,8 @@ def test_port_imports_without_jax():
     code = "\n".join(
         [f"import {m}" for m in _modules()]
         + ["import sys",
-           "bad = sorted(m for m in sys.modules if m == 'jax' "
-           "or m.startswith('jax.') or m == 'mujoco_playground_tpu' "
-           "or m.startswith('mujoco_playground_tpu.'))",
+           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'flax', 'optax', 'orbax', 'mujoco_playground_tpu'))",
            "print(bad)", "assert not bad, bad"])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -36,12 +35,16 @@ def test_port_imports_without_jax():
 
 def test_every_module_of_the_port_is_checked():
     """The import check walks the package: the modules of each slice are in
-    it (the staged step, domain randomization, the Newton kernel)."""
+    it (the staged step, domain randomization, the Newton kernel, the
+    trainer)."""
     mods = set(_modules())
     for m in ("envs.domain_randomization", "physics.batchlast",
               "physics.collision", "physics.constraint",
               "physics.linalg_small", "physics.solver_batched",
-              "ops.newton", "ops.step", "ops.lidar", "interop"):
+              "ops.newton", "ops.step", "ops.lidar", "interop",
+              "rl", "rl.config", "rl.networks", "rl.ppo", "rl.checkpoint",
+              "rl.evaluate", "rl.random_policy", "rl.train", "rl.utils",
+              "utils", "utils.logging", "utils.profiler"):
         assert f"mujoco_playground_tpu_torch.{m}" in mods, m
 
 
