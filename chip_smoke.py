@@ -21,7 +21,21 @@ ls_iterations=3)`` with uniform random actions:
   resumed run held against a straight one, one minibatch update on the
   card held against the same update on the CPU (and, as a control that
   the check sees TF32, the same with TF32 matmuls on, which must miss),
-  and the iteration's times.
+  and the iteration's times;
+* the solved recipe (README.md: 256x256 towers, the geodesic shaping and
+  the goal compass, obs 81, gamma 0.995, 6000-step episodes) through
+  ``rl.train.main`` at 4096 envs, as written and with
+  ``--spawn-heading-noise 3.14159265`` (K1 with no fused spawn scan and K2
+  on every rollout step): its launch counts, every obs and final_obs
+  finite and 81 wide, 3 timed iterations after a warm-up, and the geodesic
+  lookups' share of a rollout step; then the committed solved policies
+  (``rl_logs/solved*/ppo_torch/*.pt``, carried across from the Orbax
+  checkpoints by ``scripts/torch_convert_solved.py``) and a random policy
+  scored with EVAL.json's protocol (512 episodes, deterministic, at most
+  6000 steps) on EVAL.json's own episodes (the JAX package's spawn, goal
+  and yaw draws for eval seed 0, and its random baseline's actions,
+  ``eval_seed0.npz``) through ``--eval-only``: each success rate must lie
+  within 3 binomial standard deviations of EVAL.json's.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -72,6 +86,38 @@ TRAIN_FLAGS = ["--algo", "ppo", "--maze", "umaze", "--num-envs", "4096",
                "--normalize", "--seed", str(SEED)]
 TRAIN_ITERS = 3       # iterations of the main run; the resume adds one
 TIMED_ITERS = 3       # iterations timed by CUDA events after one warm-up
+# the solved phase: README.md's solved recipe (256x256 towers, obs 81, the
+# geodesic shaping and the goal compass, gamma 0.995, 6000-step episodes)
+# at 4096 umaze envs, as written and with a random spawn heading; then the
+# committed solved policies and a random policy scored with
+# rl_logs/solved/EVAL.json's protocol (512 parallel episodes, a
+# deterministic policy, eval seed 0, at most 6000 steps, with norm)
+EVAL_STEPS = 6000
+SOLVED_ENV = ["--maze", "umaze", "--max-velocity", "1.5", "--max-angular",
+              "3.0", "--max-episode-steps", str(EVAL_STEPS),
+              "--goal-threshold", "0.5",
+              "--sane-collision", "--collision-penalty", "-1",
+              "--geodesic-reward", "10", "--goal-compass", "--normalize",
+              "--hidden", "256", "256"]
+SOLVED_TRAIN = ["--algo", "ppo", "--num-envs", "4096", "--anneal-lr",
+                "--gamma", "0.995", "--seed", str(SEED)] + SOLVED_ENV
+HEADING_NOISE = ["--spawn-heading-noise", "3.14159265"]
+EVAL_EPISODES = 512
+# (run under rl_logs/, its checkpoint's step, its extra env flags)
+SOLVED_RUNS = (("solved", 1500119040, []),
+               ("solved_randyaw", 3000107008, HEADING_NOISE))
+# the evaluations play EVAL.json's own 512 episodes: each one's spawn,
+# goal and spawn yaw as the JAX package drew them for eval seed 0, and the
+# random baseline's actions (one uniform draw per episode, held on every
+# step, as scripts/solved_eval.py's fixed key gives them), stored beside
+# each converted checkpoint by scripts/torch_convert_solved.py
+EVAL_DRAWS = "eval_seed0.npz"
+# a success rate may lie this many binomial standard deviations (at
+# EVAL_EPISODES) from EVAL.json's: the episodes are the same, but the
+# float arithmetic of the card and the TPU differs, and a trajectory of up
+# to 6000 steps carries a difference on
+SUCCESS_SDS = 3.0
+HEADING_COL = 74   # the heading column of the observation
 # one minibatch update on the card against the same update on the CPU:
 # loss parts within 1e-5 (abs, and of their size), gradients within 1e-4
 # of each tensor's largest |gradient|, parameters after the Adam step
@@ -888,6 +934,233 @@ def trainer_phase(card, dev):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def solved_phase(card, dev):
+    """The solved recipe's trainer through ``rl.train.main`` at 4096 envs,
+    as written and with a random spawn heading, its launch counts, checks
+    and times; the share of the geodesic lookups in a rollout step; then
+    the capability figures against EVAL.json (module docstring)."""
+    from mujoco_playground_tpu_torch.rl import checkpoint as ckpt_lib
+    from mujoco_playground_tpu_torch.rl import ppo
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    from mujoco_playground_tpu_torch.rl.evaluate import evaluate_agent
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_solved")
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def config_of(argv):
+        return train_lib.config_from_args(
+            train_lib.make_parser().parse_args(argv))
+
+    # -- (a) the trainer, T=32, 10 epochs x 32 minibatches of 4096 rows
+    for name, extra in (("solved", []), ("solved_randyaw", HEADING_NOISE)):
+        t0 = time.perf_counter()
+        log_dir = os.path.join(work, "train_" + name)
+        argv = SOLVED_TRAIN + extra + ["--log-dir", log_dir]
+        cfg = config_of(argv)
+        T, B, ep = cfg.unroll_length, cfg.num_envs, cfg.max_episode_steps
+        spi = T * B
+        reset_counts()
+        train_lib.main(argv + ["--timesteps", str(spi)])
+        torch.cuda.synchronize()
+        got = read_counts()
+        # settle 3; one iteration; two evaluations (the loop's and main's)
+        # of ep steps, each with one batched reset, as the init has
+        want = {"K1": 3 + T + 2 * ep, "K1e": 0,
+                "K2": 3 + (T if extra else 0), "K3": 0}
+        print(f"solved trainer {name}: main() for one iteration, "
+              f"{time.perf_counter() - t0:.1f} s, launches {got}; expected "
+              f"{want} = settle 3 + {T} rollout steps + 2 evaluations of "
+              f"{ep} steps, K2 at 3 batched resets"
+              + (f" and on each of the {T} rollout steps" if extra else ""))
+        if got != want:
+            fail(f"solved trainer {name}: launches {got}, expected {want}")
+
+        env = train_lib.build_env(cfg, dev)
+        net = train_lib.make_network(cfg, env)
+        ts = ppo.init_train_state(
+            env, net, cfg, torch.Generator(device=dev).manual_seed(SEED))
+        ts = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(
+            os.path.join(log_dir, train_lib.CKPT_SUBDIR)), ts)
+        rollout, update = ppo.make_train_fns(env, cfg)
+        # the warm-up iteration, with every step's obs and final_obs held
+        step = env.step_autoreset_batch
+        finite, widths = [], set()
+
+        def checked(states, actions, fresh=None):
+            st = step(states, actions, fresh=fresh)
+            widths.update({tuple(st.obs.shape), tuple(st.final_obs.shape)})
+            finite.append(torch.isfinite(st.obs).all()
+                          & torch.isfinite(st.final_obs).all())
+            return st
+
+        env.step_autoreset_batch = checked
+        ts, data, _ = rollout(ts)
+        ts, _ = update(ts, data)
+        del env.step_autoreset_batch
+        all_finite = bool(torch.stack(finite).all())
+        print(f"solved trainer {name}: warm-up iteration, {len(finite)} env "
+              f"steps: obs and final_obs shapes {sorted(widths)}, all "
+              f"finite: {all_finite}")
+        if widths != {(B, 81)} or not all_finite or len(finite) != T:
+            fail(f"solved trainer {name}: obs/final_obs {sorted(widths)}, "
+                 f"finite {all_finite}")
+
+        reset_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        r_ms, u_ms = [], []
+        for _ in range(TIMED_ITERS):
+            ev[0].record()
+            ts, data, _ = rollout(ts)
+            ev[1].record()
+            ts, _ = update(ts, data)
+            ev[2].record()
+            torch.cuda.synchronize()
+            r_ms.append(ev[0].elapsed_time(ev[1]))
+            u_ms.append(ev[1].elapsed_time(ev[2]))
+        got = read_counts()
+        n = TIMED_ITERS * T
+        want = {"K1": n, "K1e": 0, "K2": n if extra else 0, "K3": 0}
+        roll_ms, upd_ms = sum(r_ms) / TIMED_ITERS, sum(u_ms) / TIMED_ITERS
+        each = lambda ms: ", ".join(f"{x:.2f}" for x in ms)  # noqa: E731
+        print(f"solved trainer {name} at B={B}, T={T}, hidden "
+              f"{cfg.hidden_sizes}, obs {env.obs_size} (mean of "
+              f"{TIMED_ITERS} after a warm-up): rollout_gae {roll_ms:.2f} ms "
+              f"(each: {each(r_ms)}; {roll_ms / T:.3f} ms per env step), "
+              f"update {upd_ms:.2f} ms (each: {each(u_ms)}), training "
+              f"{spi / (roll_ms + upd_ms) * 1e3:.0f} env-steps/s; launches "
+              f"{got}, expected {want} ({card})")
+        if got != want:
+            fail(f"solved trainer {name}: {n} rollout steps launched {got}, "
+                 f"expected {want}")
+        if extra:
+            continue
+
+        # the geodesic lookups of one env step (the shaping and the compass,
+        # plain torch ops beside K1) against a profiled rollout step
+        s = ts.env_states
+        xy = s.physics.xpos[:, 1, :2]
+        goal_vec = s.goal - (xy - s.odom_ref.position[:, :2])
+
+        def geo_part():
+            geo = env._geo_eval(s.goal_cell, xy)
+            comp = env._compass_from(geo[..., 1:3], s.obs[:, HEADING_COL],
+                                     goal_vec)
+            torch.cat([s.obs[:, :79], comp], dim=-1)
+            env._geo_delta(s.physics, s.goal_cell, geo)
+
+        def profiled(fn, reps):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w0) * 1e6 / reps
+            kern = kernel_times(prof.key_averages())
+            return (wall, sum(us for us, _, _ in kern) / reps,
+                    sum(c for _, c, _ in kern) / reps)
+
+        def rollout_once():
+            nonlocal ts
+            ts, _, _ = rollout(ts)
+
+        geo_ms = cuda_ms(geo_part, 200)
+        g_wall, g_busy, g_n = profiled(geo_part, 32)
+        r_wall, r_busy, r_n = profiled(rollout_once, 1)
+        print(f"solved trainer: the geodesic lookups of one env step at "
+              f"B={B} (a packed sample, the compass, the shaping's second "
+              f"sample): {geo_ms:.4f} ms (events), profiled wall "
+              f"{g_wall:.1f} us, device busy {g_busy:.1f} us, {g_n:.0f} "
+              f"kernel launches; a profiled rollout step: wall "
+              f"{r_wall / T:.1f} us, device busy {r_busy / T:.1f} us, "
+              f"{r_n / T:.1f} launches; share of the rollout step: "
+              f"{g_wall / (r_wall / T):.3f} of the wall, "
+              f"{g_busy / max(r_busy / T, 1e-9):.3f} of the device time "
+              f"({card})")
+
+    # -- (b) the capability figures, with EVAL.json's protocol and episodes
+    timed = {}
+
+    def load_draws(run):
+        with np.load(os.path.join(root, "rl_logs", run,
+                                  train_lib.CKPT_SUBDIR, EVAL_DRAWS)) as d:
+            return {k: torch.from_numpy(d[k][:EVAL_EPISODES]).to(dev)
+                    for k in d.files}
+
+    def timed_eval(env, *a, **kw):
+        """evaluate_agent on EVAL.json's episodes (``timed["draws"]``),
+        timed."""
+        d = timed["draws"]
+        core = env.maze_core(d["start_xy"], d["goal_xy"], d["goal_cell"],
+                             d.get("yaw"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_agent(env, *a, core=core, **kw)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t0
+        return out
+
+    def judge(label, stats, ref, seconds, counts, want):
+        sd = math.sqrt(ref["success_rate"] * (1 - ref["success_rate"])
+                       / EVAL_EPISODES)
+        far = abs(stats["success_rate"] - ref["success_rate"])
+        print(f"solved eval {label}: success_rate {stats['success_rate']:.4f}"
+              f" (EVAL.json {ref['success_rate']:.4f}; {far / sd:.2f} SD, "
+              f"1 SD {sd:.4f}), mean_return {stats['mean_return']:.2f} "
+              f"({ref['mean_return']:.2f}), mean_length "
+              f"{stats['mean_length']:.1f} ({ref['mean_length']:.1f}); "
+              f"{EVAL_EPISODES} x {EVAL_STEPS} steps in {seconds:.2f} s, "
+              f"{EVAL_EPISODES * EVAL_STEPS / seconds:.0f} env-steps/s; "
+              f"launches "
+              f"{counts}, expected {want} ({card})")
+        if counts != want:
+            fail(f"solved eval {label}: launches {counts}, expected {want}")
+        if not far <= SUCCESS_SDS * sd:
+            fail(f"solved eval {label}: success rate "
+                 f"{stats['success_rate']:.4f} is {far / sd:.2f} SD from "
+                 f"EVAL.json's {ref['success_rate']:.4f}")
+
+    evaluate_cli = train_lib.evaluate_agent
+    train_lib.evaluate_agent = timed_eval
+    try:
+        for run, step, extra in SOLVED_RUNS:
+            with open(os.path.join(root, "rl_logs", run, "EVAL.json")) as f:
+                ref = json.load(f)
+            log_dir = os.path.join(work, "eval_" + run)
+            os.makedirs(os.path.join(log_dir, train_lib.CKPT_SUBDIR))
+            shutil.copy(os.path.join(root, "rl_logs", run,
+                                     train_lib.CKPT_SUBDIR,
+                                     f"step_{step:010d}.pt"),
+                        os.path.join(log_dir, train_lib.CKPT_SUBDIR))
+            timed["draws"] = load_draws(run)
+            reset_counts()
+            stats = train_lib.main(
+                ["--algo", "ppo", "--eval-only", "--log-dir", log_dir,
+                 "--num-envs", str(EVAL_EPISODES), "--eval-episodes",
+                 str(EVAL_EPISODES), "--seed", "0"] + SOLVED_ENV + extra)
+            judge(run, stats, ref["eval"], timed["s"], read_counts(),
+                  {"K1": 3 + EVAL_STEPS, "K1e": 0, "K2": 2, "K3": 0})
+    finally:
+        train_lib.evaluate_agent = evaluate_cli
+
+    with open(os.path.join(root, "rl_logs", "solved", "EVAL.json")) as f:
+        ref = json.load(f)["random_baseline"]
+    env = train_lib.build_env(config_of(SOLVED_ENV), dev)
+    timed["draws"] = load_draws("solved")
+    held = timed["draws"]["random_actions"]
+    reset_counts()
+    stats = timed_eval(env, lambda obs: held, num_episodes=EVAL_EPISODES)
+    judge("random policy in the solved env (one uniform action per episode)",
+          stats, ref, timed["s"], read_counts(),
+          {"K1": EVAL_STEPS, "K1e": 0, "K2": 1, "K3": 0})
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"solved phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one NVIDIA GPU")
@@ -1277,7 +1550,12 @@ def main():
           f"({card})")
 
     # -- phase 5: the trainer ---------------------------------------------
+    t0 = time.perf_counter()
     trainer_phase(card, dev)
+    print(f"trainer phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 6: the solved recipe and the solved policies ----------------
+    solved_phase(card, dev)
 
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",

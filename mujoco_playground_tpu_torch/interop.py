@@ -113,3 +113,22 @@ def norm_state_from_arrays(d: dict, device) -> NormState:
         f.name: torch.tensor(np.asarray(d[f.name], np.float32),
                              device=device)
         for f in dataclasses.fields(NormState)})
+
+
+def ppo_checkpoint_from_flax(params: dict, norm: dict = None,
+                             global_step: int = 0) -> dict:
+    """A policy-only port checkpoint (``torch.save`` it as
+    ``<log-dir>/ppo_torch/step_<global_step:010d>.pt``) from a JAX PPO
+    train state's leaves as numpy: ``params`` as for
+    ``actor_critic_from_flax`` and ``norm`` the ``NormState`` leaves by
+    name.  It holds the network, the norm statistics without the per-env
+    running returns (trainer state, not policy) and the step count: what
+    ``rl.checkpoint.restore_policy`` (``--eval-only``) reads."""
+    out = {"network": actor_critic_from_flax(params),
+           "global_step": int(global_step), "norm": None}
+    if norm is not None:
+        out["norm"] = {
+            f.name: torch.tensor(np.asarray(norm[f.name], np.float32))
+            for f in dataclasses.fields(NormState)
+            if f.name != "env_returns"}
+    return out

@@ -119,6 +119,20 @@ def load_state_dict(ts, d: dict, generators: bool = True):
         norm=norm, global_step=int(d["global_step"]))
 
 
+def restore_policy(target: str, template):
+    """``template`` with the policy of a saved checkpoint: its network, its
+    norm statistics (leaves absent from the file keep the template's) and
+    its step count.  Reads what an evaluation needs and nothing else, so a
+    policy-only file (``interop.ppo_checkpoint_from_flax``) restores too;
+    the optimizer, env states and generators stay the template's."""
+    d = torch.load(target, map_location="cpu", weights_only=True)
+    template.network.load_state_dict(d["network"])
+    norm = template.norm
+    if norm is not None and d.get("norm") is not None:
+        norm = _from_dict(norm, d["norm"], template.env_states.obs.device)
+    return template.replace(norm=norm, global_step=int(d["global_step"]))
+
+
 def restore_checkpoint(target: str, template):
     """Restore a saved train state into ``template`` (a train state of the
     same configuration, e.g. a fresh ``init_train_state``), generators

@@ -17,19 +17,22 @@ from mujoco_playground_tpu_torch.rl import ppo
 @torch.no_grad()
 def evaluate_agent(env, policy_fn: Callable, num_episodes: int = 10,
                    generator: Optional[torch.Generator] = None,
-                   max_steps: Optional[int] = None) -> Dict[str, float]:
+                   max_steps: Optional[int] = None,
+                   core=None) -> Dict[str, float]:
     """policy_fn: obs (B, obs_size) -> action (B, 2) (deterministic).
 
     The resets draw from ``generator`` (default: a generator on the env's
     device seeded 0), never from the env's own, so that an evaluation
-    leaves a training run's stream untouched.  A ``DomainRandomizedEnv``
-    is bound to its batch: it plays one episode per randomized slot."""
+    leaves a training run's stream untouched; ``core`` (a ``reset_core``
+    batch of ``num_episodes``, e.g. ``maze_core`` of given draws) replaces
+    the draws.  A ``DomainRandomizedEnv`` is bound to its batch: it plays
+    one episode per randomized slot."""
     max_steps = max_steps or env.config.max_episode_steps
     if hasattr(env, "num_envs"):
         num_episodes = env.num_envs
     if generator is None:
         generator = torch.Generator(device=env.device).manual_seed(0)
-    states = env.reset(num_episodes, generator=generator)
+    states = env.reset(num_episodes, generator=generator, core=core)
     dev = states.obs.device
     ret = torch.zeros(num_episodes, dtype=torch.float32, device=dev)
     length = torch.zeros(num_episodes, dtype=torch.int32, device=dev)

@@ -80,14 +80,15 @@ def make_network(config: RLConfig, env) -> ActorCritic:
 
 def train_ppo(config: RLConfig, resume: bool = False, verbose: bool = True,
               profile_dir: str = None, eval_only: bool = False,
-              device=None):
-    """The PPO loop.  Returns ``(ts, env, network)``.
+              device=None, env=None):
+    """The PPO loop.  Returns ``(ts, env, network)``; ``env`` (default: one
+    built from ``config``) is the env it trains in.
 
     Step accounting is host-side Python ints; metrics are read back once
     per log group of ~1M env steps (never more iterations than
     ``total_timesteps`` has left), which is the loop's only host sync."""
     device = resolve_device(device)
-    env = build_env(config, device)
+    env = build_env(config, device) if env is None else env
     network = make_network(config, env)
     generator = torch.Generator(device=device).manual_seed(config.seed)
     ts = ppo.init_train_state(env, network, config, generator)
@@ -97,7 +98,11 @@ def train_ppo(config: RLConfig, resume: bool = False, verbose: bool = True,
     if resume or eval_only:
         latest = ckpt_lib.latest_checkpoint(log_dir)
         if latest:
-            ts = ckpt_lib.restore_checkpoint(latest, ts)
+            # an evaluation needs only the policy (a policy-only file, such
+            # as a JAX checkpoint carried across by interop, holds no more)
+            restore = (ckpt_lib.restore_policy if eval_only
+                       else ckpt_lib.restore_checkpoint)
+            ts = restore(latest, ts)
             resume_gs = ckpt_lib.checkpoint_step(latest)
             if verbose:
                 print(f"Resumed from {latest}")
@@ -300,6 +305,8 @@ def config_from_args(args) -> RLConfig:
 
 
 def main(argv=None):
+    """The CLI; returns the final evaluation's statistics (``--algo
+    ppo``)."""
     args = make_parser().parse_args(argv)
     config = config_from_args(args)
     if args.algo in ("sac", "td3"):
@@ -318,17 +325,18 @@ def main(argv=None):
              if device.type == "cuda" else ""))
     arena = config.maze_id if config.env_type == "maze" else "open floor"
     print(f"env: {config.env_type} ({arena})")
-    print(f"obs ({79 + (2 if config.goal_compass else 0)},), act (2,), "
+    env = build_env(config, device)
+    print(f"obs ({env.obs_size},), act ({env.action_size},), "
           f"num_envs {config.num_envs}")
     print("=" * 60)
 
     if args.algo == "random":
-        env = build_env(config, device)
         run_random_baseline(env, episodes=args.episodes, seed=args.seed)
     elif args.algo == "ppo":
         ts, env, network = train_ppo(config, resume=args.resume,
                                      profile_dir=args.profile,
-                                     eval_only=args.eval_only, device=device)
+                                     eval_only=args.eval_only, device=device,
+                                     env=env)
         stats = evaluate_agent(
             env, deterministic_policy(
                 network, norm=ts.norm if config.normalize_obs else None),
@@ -338,6 +346,7 @@ def main(argv=None):
               f"± {stats['std_return']:.2f}")
         print(f"  Mean Episode Length: {stats['mean_length']:.1f}")
         print(f"  Success Rate: {stats['success_rate']*100:.1f}%")
+        return stats
 
 
 if __name__ == "__main__":

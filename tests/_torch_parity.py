@@ -3,6 +3,8 @@ package: both sides get the same numpy inputs, in float32."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from mujoco_playground_tpu_torch import interop
 from mujoco_playground_tpu_torch.physics.model import (ARRAY_FIELDS,
@@ -11,6 +13,7 @@ from mujoco_playground_tpu_torch.physics.model import (ARRAY_FIELDS,
 # the two invweight0 leaves come from a matrix inverse, which the port takes
 # in float64 on the host and JAX in float32
 RTOL_FIELDS = ("body_invweight0", "dof_invweight0")
+ANGLE = 78   # the goal-angle column of an observation
 
 
 def jax_model_arrays(jm):
@@ -62,3 +65,79 @@ def assert_angles_close(got, want, atol):
     arctan2(sin, cos) may differ by 2 pi at +-pi."""
     np.testing.assert_allclose(np.sin(got), np.sin(want), atol=atol)
     np.testing.assert_allclose(np.cos(got), np.cos(want), atol=atol)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work in a parity test is many tiny ops: one thread
+    runs them as fast and leaves the other test workers their cores.
+    Autouse in the modules that import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def obs_close(got, want, atol, compass_atol=None):
+    """Observations of an Ackermann env: every column at ``atol``, the goal
+    angle (column 78) through sin and cos, and the compass columns (79-80,
+    when present) at ``compass_atol`` (default ``atol``)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got[:, :ANGLE], want[:, :ANGLE], atol=atol)
+    assert_angles_close(got[:, ANGLE], want[:, ANGLE], atol)
+    if want.shape[-1] > ANGLE + 1:
+        np.testing.assert_allclose(
+            got[:, ANGLE + 1:], want[:, ANGLE + 1:],
+            atol=atol if compass_atol is None else compass_atol)
+
+
+def truncate_half(jstates, max_steps):
+    """JAX states with the even envs one step from truncation."""
+    import jax.numpy as jnp
+    B = jstates.steps.shape[0]
+    return jstates.replace(steps=jnp.where(
+        jnp.arange(B) % 2 == 0, max_steps - 1, 0).astype(jstates.steps.dtype))
+
+
+def autoreset_rollout(jenv, jstep, pstep, jstates, n_steps, seed, check):
+    """``n_steps`` of JAX's and the port's ``step_autoreset_batch`` from
+    the same states (``jstates`` carried across) with the same numpy
+    actions and JAX's own ``reset_core`` samples injected as the port's
+    ``fresh``; ``check(pstates, jstates)`` after each step.  Returns the
+    number of episodes that ended."""
+    import jax
+    import jax.numpy as jnp
+    B = jstates.steps.shape[0]
+    pstates = interop.env_state_from_arrays(jax_env_state_arrays(jstates),
+                                            "cpu")
+    jfresh_of = jax.jit(lambda rng: jax.vmap(jenv.reset_core)(
+        jax.vmap(jax.random.split)(rng)[:, 1]))
+    rng = np.random.default_rng(seed)
+    n_done = 0
+    for _ in range(n_steps):
+        actions = rng.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+        fresh = interop.env_state_from_arrays(
+            jax_env_state_arrays(jfresh_of(jstates.rng)), "cpu")
+        jstates = jstep(jstates, jnp.asarray(actions))
+        pstates = pstep(pstates, torch.from_numpy(actions), fresh=fresh)
+        np.testing.assert_array_equal(pstates.done.numpy(),
+                                      np.asarray(jstates.done))
+        check(pstates, jstates)
+        n_done += int(pstates.done.sum())
+    return n_done
+
+
+def force_warmstart_pick(monkeypatch):
+    """Make the port's fused step (K1's twin on the CPU) make MuJoCo's
+    warm-start pick, as the JAX package's CPU step (the staged step) does:
+    ``ws_compare=True`` on every K1 call, with ``check_variant`` (which
+    admits only the flag sets compiled into K1) bypassed.  The fused TPU
+    step and K1 skip the pick; after a contact-set change the two starts
+    part by ~1e-4 in qpos, so env parity over more than a few steps
+    compares like with like."""
+    from mujoco_playground_tpu_torch.ops import step as k1
+    step_fused = k1.step_fused
+    monkeypatch.setattr(k1, "check_variant", lambda *a, **kw: None)
+    monkeypatch.setattr(k1, "step_fused", lambda *a, **kw: step_fused(
+        *a, **{**kw, "ws_compare": True}))

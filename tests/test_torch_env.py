@@ -152,12 +152,22 @@ def test_env_state_arrays_round_trip(envs):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(reference_delayed_obs=True), dict(spawn_heading_noise=3.14),
-    dict(goal_compass=True), dict(geodesic_reward_scale=1.0),
-    dict(physics_substeps=2)])
+    dict(reference_delayed_obs=True), dict(physics_substeps=2)])
 def test_unported_configurations_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1, item 2 'Reference-compat"):
         make_ackermann_env("maze", "umaze", device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(spawn_heading_noise=3.14), dict(goal_compass=True),
+    dict(geodesic_reward_scale=1.0)])
+def test_solved_task_knobs_construct(knob):
+    """The solved-task knobs are ported (``test_torch_geodesic.py``,
+    ``test_torch_spawn_heading.py``): only the compass widens the obs."""
+    env = make_ackermann_env("simple", device="cpu", **knob)
+    assert env.obs_size == (81 if "goal_compass" in knob else 79)
+    assert env.reset(2).obs.shape == (2, env.obs_size)
 
 
 def test_domain_randomization_raises(envs):

@@ -36,9 +36,10 @@ def test_port_imports_without_jax():
 def test_every_module_of_the_port_is_checked():
     """The import check walks the package: the modules of each slice are in
     it (the staged step, domain randomization, the Newton kernel, the
-    trainer)."""
+    trainer, the geodesic fields)."""
     mods = set(_modules())
-    for m in ("envs.domain_randomization", "physics.batchlast",
+    for m in ("envs.domain_randomization", "envs.geodesic",
+              "physics.batchlast",
               "physics.collision", "physics.constraint",
               "physics.linalg_small", "physics.solver_batched",
               "ops.newton", "ops.step", "ops.lidar", "interop",
