@@ -35,7 +35,28 @@ ls_iterations=3)`` with uniform random actions:
   6000 steps) on EVAL.json's own episodes (the JAX package's spawn, goal
   and yaw draws for eval seed 0, and its random baseline's actions,
   ``eval_seed0.npz``) through ``--eval-only``: each success rate must lie
-  within 3 binomial standard deviations of EVAL.json's.
+  within 3 binomial standard deviations of EVAL.json's;
+* off-policy (``offpolicy_phase``): SAC and TD3 through ``rl.train.main``
+  at the committed runs' configuration (``--maze umaze --num-envs 256
+  --progress-reward 3``: a 100,000-row replay buffer, batch 256, 256x256
+  towers, 4 collect and 4 gradient steps an iteration) for one warm-up
+  iteration and two chunks of 97 iterations (199,680 env steps): K1
+  exactly 4 times an iteration and K2 once per batched reset; the buffer
+  and every parameter finite, one ``metrics.jsonl`` line per chunk; the
+  second chunk's env-steps/s by CUDA events and by the loop's own
+  ``steps_per_second``; one profiled iteration (collect against the
+  gradient steps: launches, device busy, idle share) and its host syncs,
+  which must be none; a resume for one more chunk held bitwise against a
+  straight run; one SAC gradient step on the card against the same step
+  on the CPU (TF32 off, with the TF32-on control that must miss); then
+  the committed SAC and TD3 policies (``rl_logs/offpolicy/*_torch/*.pt``,
+  carried across by ``scripts/torch_convert_offpolicy.py``) scored
+  through ``--eval-only`` with ``rl_logs/offpolicy/EVAL.json``'s protocol
+  (256 episodes, at most 1000 steps) on its own episodes
+  (``eval_seed0.npz``): each success rate within 3 binomial standard
+  deviations of EVAL.json's, and the median mean return over those
+  episodes and 16 copies with every spawn moved by one float32 ulp within
+  3 standard errors of EVAL.json's (``NUDGES``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -118,6 +139,28 @@ EVAL_DRAWS = "eval_seed0.npz"
 # to 6000 steps carries a difference on
 SUCCESS_SDS = 3.0
 HEADING_COL = 74   # the heading column of the observation
+# the off-policy phase: the committed SAC/TD3 runs' configuration
+# (rl_logs/offpolicy/EVAL.json; BENCHMARKS.md) at its width, 256 umaze
+# envs, cut from 20M env steps to one warm-up iteration and two chunks of
+# 97 iterations (199,680); a resume adds one chunk
+OFFPOLICY_ENV = ["--maze", "umaze", "--progress-reward", "3"]
+OFFPOLICY_TRAIN = (["--num-envs", "256", "--seed", str(SEED),
+                    "--save-freq", str(10**9)] + OFFPOLICY_ENV)
+OFFPOLICY_STEPS = 199680
+OFFPOLICY_EVAL_EPISODES = 256
+OFFPOLICY_EVAL_STEPS = 1000
+# a mean return may lie this many standard errors (EVAL.json's
+# std_return / sqrt(256)) from EVAL.json's, on the same episodes
+RETURN_SES = 3.0
+# A few of these episodes are chaotic: a wall contact decides whether the
+# robot slides off or stays pinned, at -50 a step, for hundreds of steps.
+# Moving one spawn by one float32 ulp moves SAC's episode 29 from -190 to
+# -3,598 or -18,749 (PERF.md §6), and EVAL.json's figure is one draw of
+# that chaos on the TPU's arithmetic.  So each policy is also scored with
+# every spawn coordinate moved one ulp up or down (a seeded direction),
+# NUDGES times, and the mean return held is the median over the 1 + NUDGES
+# evaluations; the success rate is held on EVAL.json's episodes as drawn.
+NUDGES = 16
 # one minibatch update on the card against the same update on the CPU:
 # loss parts within 1e-5 (abs, and of their size), gradients within 1e-4
 # of each tensor's largest |gradient|, parameters after the Adam step
@@ -1161,6 +1204,416 @@ def solved_phase(card, dev):
     print(f"solved phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def offpolicy_phase(card, dev):
+    """SAC and TD3 through ``rl.train.main`` at 256 envs, their launch
+    counts, checks and times; a resume against a straight run; one SAC
+    gradient step on the card against the CPU; the committed policies
+    scored against EVAL.json (module docstring)."""
+    from mujoco_playground_tpu_torch.rl import checkpoint as ckpt_lib
+    from mujoco_playground_tpu_torch.rl import sac, td3
+    from mujoco_playground_tpu_torch.rl import replay_buffer as rb
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    from mujoco_playground_tpu_torch.rl.evaluate import evaluate_agent
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_offpolicy")
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def config_of(argv):
+        return train_lib.config_from_args(
+            train_lib.make_parser().parse_args(argv))
+
+    for algo, mod, make in (("sac", sac, "make_sac"),
+                            ("td3", td3, "make_td3")):
+        def cli(run, steps, *extra):
+            return (["--algo", algo] + OFFPOLICY_TRAIN
+                    + ["--timesteps", str(steps), "--log-dir",
+                       os.path.join(work, run)] + list(extra))
+
+        def latest(run):
+            return ckpt_lib.latest_checkpoint(os.path.join(
+                work, run, train_lib.ckpt_subdir(algo)))
+
+        def load(run):
+            return torch.load(latest(run), map_location="cpu",
+                              weights_only=True)
+
+        cfg = config_of(cli("main", OFFPOLICY_STEPS))
+        B = min(cfg.num_envs, train_lib.OFFPOLICY_MAX_ENVS)
+        cfg = dataclasses.replace(cfg, num_envs=B)
+        spi = 4 * B
+        chunk = min(train_lib.OFFPOLICY_LOG_STEPS, OFFPOLICY_STEPS) // spi
+        warm = -(-cfg.sac_learning_starts // spi)
+        iters = warm + 2 * chunk
+        if warm * spi + 2 * chunk * spi != OFFPOLICY_STEPS:
+            fail(f"offpolicy {algo}: {OFFPOLICY_STEPS} steps are not "
+                 f"{warm} warm-up iterations and two chunks of {chunk}")
+
+        # the parts of the launch counts: the env's settle, and the final
+        # evaluation (eval_episodes episodes of max_episode_steps steps)
+        reset_counts()
+        env = train_lib.build_env(cfg, dev)
+        settle = read_counts()
+        init, make_step = getattr(mod, make)(env, cfg)
+        state0 = init()
+        reset_counts()
+        evaluate_agent(env, mod.deterministic_policy(state0),
+                       num_episodes=cfg.eval_episodes)
+        one_eval = read_counts()
+        del state0
+
+        # CUDA events around each training iteration of main()'s loop
+        real_make = getattr(mod, make)
+        spans = []
+
+        def spying(*a, **kw):
+            init_fn, make_fn = real_make(*a, **kw)
+
+            def make_timed(random_actions=False):
+                step = make_fn(random_actions)
+                if random_actions:
+                    return step
+
+                def timed(state, *sa, **skw):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    out = step(state, *sa, **skw)
+                    ev[1].record()
+                    spans.append(ev)
+                    return out
+                return timed
+            return init_fn, make_timed
+
+        def run_main(label, argv, n_iters):
+            reset_counts()
+            t0 = time.perf_counter()
+            train_lib.main(argv)
+            torch.cuda.synchronize()
+            got = read_counts()
+            want = {"K1": settle["K1"] + 4 * n_iters + one_eval["K1"],
+                    "K1e": 0, "K2": settle["K2"] + 1 + one_eval["K2"],
+                    "K3": 0}
+            print(f"offpolicy {algo} {label}: {time.perf_counter() - t0:.1f}"
+                  f" s, launches {got}; expected {want} = settle "
+                  f"{settle['K1']} + {n_iters} iterations x 4 collect steps"
+                  f" + one evaluation of {cfg.eval_episodes} x "
+                  f"{cfg.max_episode_steps} steps, K2 at the init reset "
+                  f"and the evaluation's")
+            if got != want:
+                fail(f"offpolicy {algo} {label}: launches {got}, expected "
+                     f"{want}")
+
+        setattr(mod, make, spying)
+        try:
+            run_main(f"main run ({warm} warm-up + 2 x {chunk} iterations)",
+                     cli("main", OFFPOLICY_STEPS), iters)
+        finally:
+            setattr(mod, make, real_make)
+        if ckpt_lib.checkpoint_step(latest("main")) != OFFPOLICY_STEPS:
+            fail(f"offpolicy {algo}: the last checkpoint is "
+                 f"{latest('main')}")
+        with open(os.path.join(work, "main", train_lib.ckpt_subdir(algo),
+                               "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        want_steps = [warm * spi + (k + 1) * chunk * spi for k in range(2)]
+        if [x["step"] for x in lines] != want_steps or not all(
+                math.isfinite(v) for x in lines for v in x.values()):
+            fail(f"offpolicy {algo}: metrics.jsonl {lines}")
+        saved = load("main")
+        finite = all(bool(torch.isfinite(v).all()) for m in mod_names(saved)
+                     for v in saved[m].values()) and all(
+            bool(torch.isfinite(saved["buffer"][k]).all())
+            for k in rb.FIELDS)
+        print(f"offpolicy {algo}: checkpoint "
+              f"{os.path.basename(latest('main'))}, buffer "
+              f"{saved['buffer']['size']} rows (ptr {saved['buffer']['ptr']})"
+              f", buffer and parameters finite: {finite}; metrics lines at "
+              f"{[x['step'] for x in lines]}")
+        if not finite or saved["buffer"]["size"] != cfg.sac_buffer_size:
+            fail(f"offpolicy {algo}: a non-finite buffer row or parameter, "
+                 f"or buffer size {saved['buffer']['size']}")
+        if len(spans) != 2 * chunk:
+            fail(f"offpolicy {algo}: {len(spans)} timed iterations")
+        ev_ms = spans[chunk][0].elapsed_time(spans[-1][1])
+        print(f"offpolicy {algo} training at B={B} (second chunk, {chunk} "
+              f"iterations of {spi} env steps): {ev_ms:.2f} ms by CUDA "
+              f"events, {chunk * spi / ev_ms * 1e3:.0f} env-steps/s; the "
+              f"loop's steps_per_second {lines[1]['steps_per_second']:.0f} "
+              f"(first chunk {lines[0]['steps_per_second']:.0f}); "
+              f"{ev_ms / chunk:.3f} ms per iteration ({card})")
+
+        # one iteration from the trained state: host syncs, then profiled
+        env = train_lib.build_env(cfg, dev)
+        init, make_step = getattr(mod, make)(env, cfg)
+        state = ckpt_lib.restore_checkpoint(latest("main"), init())
+        step = make_step(random_actions=False)
+        state, _ = step(state)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, _ = step(state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = [str(w.message)[:120] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        print(f"offpolicy {algo}: host syncs in one iteration: {len(syncs)} "
+              f"{syncs[:3]}")
+        if syncs:
+            fail(f"offpolicy {algo}: an iteration waits on the card")
+
+        def profiled(phase):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                phase()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w0) * 1e6
+            return wall, kernel_times(prof.key_averages())
+
+        def collect_part():
+            nonlocal state
+            state, _ = step.collect(state)
+
+        def update_part():
+            nonlocal state
+            state, _ = step.update(state)
+
+        windows = [("collect (4 env steps)", *profiled(collect_part)),
+                   ("gradient steps (4)", *profiled(update_part))]
+        wall_us = sum(w for _, w, _ in windows)
+        busy_us = sum(us for _, _, kern in windows for us, _, _ in kern)
+        print(f"offpolicy {algo}: profiled iteration: wall "
+              f"{wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.3f} ms, "
+              f"idle share {1 - busy_us / wall_us:.3f} ({card})")
+        for label, wall, kern in windows:
+            n = sum(count for _, count, _ in kern)
+            busy = sum(us for us, _, _ in kern)
+            print(f"  {label}: wall {wall / 1e3:.2f} ms, device busy "
+                  f"{busy:.1f} us, {n} kernel launches, idle share "
+                  f"{1 - busy / wall:.3f}")
+            for us, count, name in kern[:5]:
+                print(f"    {us:9.1f} us  x{count:<4d} {name[:80]}")
+
+        if algo == "sac":
+            sac_card_vs_cpu(step, state, cfg)
+        del state
+
+        # a resume for one more chunk against the straight run
+        more = OFFPOLICY_STEPS + chunk * spi
+        run_main(f"resume ({chunk} iterations)", cli("main", more,
+                                                     "--resume"), chunk)
+        train_lib.main(cli("straight", more))
+        a, b = load("straight"), load("main")
+        d_params, _ = _tree_diff({m: a[m] for m in mod_names(a)},
+                                 {m: b[m] for m in mod_names(b)})
+        _, same_all = _tree_diff(a, b)
+        print(f"offpolicy {algo} resume check: {iters} iterations + a "
+              f"resume for {chunk} against {iters + chunk} straight: "
+              f"largest parameter difference {d_params:.3e}; whole train "
+              f"state (networks, targets, optimizers, buffer, env states, "
+              f"generators, step{', update count' if algo == 'td3' else ''})"
+              f" bitwise equal: {same_all}")
+        if not same_all:
+            fail(f"offpolicy {algo}: the resumed run departs from the "
+                 f"straight run")
+        shutil.rmtree(os.path.join(work, "straight"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "main"), ignore_errors=True)
+
+    offpolicy_eval(card, dev, work)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"offpolicy phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def mod_names(d):
+    """The network entries of an off-policy checkpoint dict."""
+    return [k for k in ("actor", "actor_target", "q", "q_target") if k in d]
+
+
+def sac_card_vs_cpu(step, state, cfg):
+    """One SAC gradient step (``train_step.gradient_step``) on the card
+    against the same step on the CPU from copies of ``state``'s networks
+    and optimizers, on the same minibatch and draws, with TF32 matmuls off
+    and then on (the control, which must miss)."""
+    from torch import nn
+
+    from mujoco_playground_tpu_torch.rl import replay_buffer as rb
+    dev = state.log_alpha.device
+    batch = rb.sample(state.buffer, cfg.sac_batch_size, state.generator)
+    A = batch[1].shape[1]
+    eps = [torch.randn((cfg.sac_batch_size, A), generator=state.generator,
+                       device=dev) for _ in range(2)]
+
+    def copy_to(device):
+        mods = {k: copy.deepcopy(getattr(state, k)).to(device)
+                for k in ("actor", "q", "q_target")}
+        log_alpha = nn.Parameter(state.log_alpha.detach().clone().to(device))
+        opts = {}
+        for name, params in (("actor_opt", mods["actor"].parameters()),
+                             ("q_opt", mods["q"].parameters()),
+                             ("alpha_opt", [log_alpha])):
+            opt = torch.optim.Adam(params, lr=cfg.sac_learning_rate)
+            opt.load_state_dict(copy.deepcopy(
+                getattr(state, name).state_dict()))
+            opts[name] = opt
+        return state.replace(log_alpha=log_alpha, **mods, **opts)
+
+    def params_of(st):
+        return ([p for k in ("actor", "q", "q_target")
+                 for p in getattr(st, k).parameters()] + [st.log_alpha])
+
+    def run(tf32):
+        sts = [copy_to(dev), copy_to("cpu")]
+        allowed = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            l_gpu = torch.stack(step.gradient_step(sts[0], batch, *eps)).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allowed
+        l_cpu = torch.stack(step.gradient_step(
+            sts[1], tuple(x.cpu() for x in batch), *(e.cpu() for e in eps)))
+        pairs = list(zip(params_of(sts[0]), params_of(sts[1])))
+        grads = [(p.grad, q.grad) for p, q in pairs if q.grad is not None]
+        return dict(
+            loss=float(((l_gpu - l_cpu).abs() / (1 + l_cpu.abs())).max()),
+            grad=max(float((g.cpu() - h).abs().max()
+                           / h.abs().max().clamp_min(1e-30))
+                     for g, h in grads),
+            param=max(float((p.detach().cpu() - q.detach()).abs().max())
+                      for p, q in pairs)), len(grads)
+
+    for tf32 in (False, True):
+        d, n_grads = run(tf32)
+        within = all(d[k] <= UPDATE_TOL[k] for k in UPDATE_TOL)
+        role = "the control" if tf32 else "the check"
+        print(f"offpolicy sac gradient step, card against CPU "
+              f"({cfg.sac_batch_size} rows, {n_grads} gradient tensors; "
+              f"TF32 matmuls allowed: {tf32}, {role}): q/actor/alpha losses"
+              f" {d['loss']:.3e} (tol {UPDATE_TOL['loss']:g}), gradients "
+              f"{d['grad']:.3e} of each tensor's largest (tol "
+              f"{UPDATE_TOL['grad']:g}), parameters and targets "
+              f"{d['param']:.3e} (tol {UPDATE_TOL['param']:g}); within all "
+              f"three: {within}")
+        if within == tf32:
+            fail("offpolicy sac: the card's gradient step departs from the "
+                 "CPU's" if not tf32 else
+                 "offpolicy sac: the card-against-CPU check does not see "
+                 "TF32")
+
+
+def offpolicy_eval(card, dev, work):
+    """The committed SAC and TD3 policies through ``--eval-only`` with
+    rl_logs/offpolicy/EVAL.json's protocol on its own episodes, and on
+    NUDGES copies of them with the spawns moved by one float32 ulp."""
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    from mujoco_playground_tpu_torch.rl.evaluate import evaluate_agent
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = os.path.join(root, "rl_logs", "offpolicy")
+    with open(os.path.join(run, "EVAL.json")) as f:
+        ref_all = json.load(f)
+    with np.load(os.path.join(run, EVAL_DRAWS)) as d:
+        draws = {k: torch.from_numpy(d[k]).to(dev) for k in d.files}
+    timed = {}
+
+    def nudged_xy(k):
+        """EVAL.json's spawns (k = 0), or each coordinate moved one ulp
+        in a direction drawn from seed k."""
+        xy = draws["start_xy"]
+        if not k:
+            return xy
+        g = torch.Generator(device=dev).manual_seed(k)
+        up = torch.randint(0, 2, xy.shape, generator=g, device=dev).bool()
+        return torch.nextafter(xy, torch.where(up, math.inf, -math.inf))
+
+    def timed_eval(env, *a, **kw):
+        """evaluate_agent on EVAL.json's episodes, timed, then on NUDGES
+        nudged copies (``timed["means"]``, ``timed["success"]``)."""
+        runs = []
+        for k in range(1 + NUDGES):
+            core = env.maze_core(nudged_xy(k), draws["goal_xy"],
+                                 draws["goal_cell"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(evaluate_agent(env, *a, core=core, **kw))
+            torch.cuda.synchronize()
+            if not k:
+                timed["s"] = time.perf_counter() - t0
+        timed["means"] = [r["mean_return"] for r in runs]
+        timed["success"] = [r["success_rate"] for r in runs]
+        return runs[0]
+
+    evaluate_cli = train_lib.evaluate_agent
+    train_lib.evaluate_agent = timed_eval
+    try:
+        for algo in ("sac", "td3"):
+            ref = ref_all[algo]
+            src = os.path.join(run, train_lib.ckpt_subdir(algo))
+            log_dir = os.path.join(work, "eval_" + algo)
+            dst = os.path.join(log_dir, train_lib.ckpt_subdir(algo))
+            os.makedirs(dst)
+            for name in os.listdir(src):
+                shutil.copy(os.path.join(src, name), dst)
+            reset_counts()
+            stats = train_lib.main(
+                ["--algo", algo, "--eval-only", "--log-dir", log_dir,
+                 "--num-envs", str(OFFPOLICY_EVAL_EPISODES),
+                 "--eval-episodes", str(OFFPOLICY_EVAL_EPISODES),
+                 "--max-episode-steps", str(OFFPOLICY_EVAL_STEPS),
+                 "--seed", "0"] + OFFPOLICY_ENV)
+            counts = read_counts()
+            runs = 1 + NUDGES
+            want = {"K1": 3 + runs * OFFPOLICY_EVAL_STEPS, "K1e": 0,
+                    "K2": 1 + runs, "K3": 0}
+            n = OFFPOLICY_EVAL_EPISODES
+            sd = math.sqrt(ref["success_rate"] * (1 - ref["success_rate"])
+                           / n)
+            se = ref["std_return"] / math.sqrt(n)
+            far = abs(stats["success_rate"] - ref["success_rate"])
+            means = timed["means"]
+            median = float(np.median(means))
+            off = abs(median - ref["mean_return"])
+            print(f"offpolicy eval {algo} (the committed policy, step "
+                  f"{ref['timesteps']}) on EVAL.json's episodes: "
+                  f"success_rate {stats['success_rate']:.4f} (EVAL.json "
+                  f"{ref['success_rate']:.4f}; {far / sd:.2f} SD, 1 SD "
+                  f"{sd:.4f}), mean_return {stats['mean_return']:.2f} "
+                  f"(EVAL.json {ref['mean_return']:.2f}; "
+                  f"{abs(stats['mean_return'] - ref['mean_return']) / se:.2f}"
+                  f" SE, 1 SE {se:.2f}), std_return "
+                  f"{stats['std_return']:.2f} ({ref['std_return']:.2f}), "
+                  f"mean_length {stats['mean_length']:.1f}; {n} x "
+                  f"{OFFPOLICY_EVAL_STEPS} steps in {timed['s']:.2f} s, "
+                  f"{n * OFFPOLICY_EVAL_STEPS / timed['s']:.0f} env-steps/s "
+                  f"({card})")
+            print(f"offpolicy eval {algo} with the spawns moved one ulp, "
+                  f"{NUDGES} times: mean returns "
+                  f"{', '.join(f'{m:.2f}' for m in means[1:])}; success "
+                  f"rates {min(timed['success']):.4f}-"
+                  f"{max(timed['success']):.4f}; the median mean return of "
+                  f"the {runs} evaluations {median:.2f} ({off / se:.2f} SE "
+                  f"from EVAL.json's); launches {counts}, expected {want}")
+            if counts != want:
+                fail(f"offpolicy eval {algo}: launches {counts}, expected "
+                     f"{want}")
+            if not far <= SUCCESS_SDS * sd:
+                fail(f"offpolicy eval {algo}: success rate "
+                     f"{stats['success_rate']:.4f} is {far / sd:.2f} SD from "
+                     f"EVAL.json's {ref['success_rate']:.4f}")
+            if not off <= RETURN_SES * se:
+                fail(f"offpolicy eval {algo}: the median mean return "
+                     f"{median:.2f} is {off / se:.2f} SE from EVAL.json's "
+                     f"{ref['mean_return']:.2f}")
+    finally:
+        train_lib.evaluate_agent = evaluate_cli
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one NVIDIA GPU")
@@ -1556,6 +2009,9 @@ def main():
 
     # -- phase 6: the solved recipe and the solved policies ----------------
     solved_phase(card, dev)
+
+    # -- phase 7: SAC and TD3, and the committed off-policy policies -------
+    offpolicy_phase(card, dev)
 
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",

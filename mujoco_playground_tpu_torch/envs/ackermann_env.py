@@ -77,8 +77,8 @@ class EnvConfig:
 
 # the ROADMAP.md item that ports the configurations this port does not run
 # yet
-_COMPAT_ITEM = "Queue 1, item 2 'Reference-compat knobs'"
-_STAGED_DR_ITEM = "Queue 1, item 3 'Staged DR fallback'"
+_COMPAT_ITEM = "Queue 1, item 1 'Reference-compat knobs'"
+_STAGED_DR_ITEM = "Queue 1, item 2 'Staged DR fallback'"
 
 
 def _check_ported(config: EnvConfig):

@@ -82,6 +82,15 @@ def env_state_to_arrays(state: EnvState) -> dict:
     return out
 
 
+def _dense_from_flax(out: dict, name: str, leaves: dict):
+    """``out[name.weight]``, ``out[name.bias]`` from a flax ``Dense``'s
+    leaves: its kernel (in, out) transposed to a ``Linear`` weight (out,
+    in)."""
+    out[f"{name}.weight"] = torch.tensor(
+        np.asarray(leaves["kernel"], np.float32).T.copy())
+    out[f"{name}.bias"] = torch.tensor(np.asarray(leaves["bias"], np.float32))
+
+
 def actor_critic_from_flax(params: dict) -> dict:
     """A port ``ActorCritic`` ``state_dict`` from the JAX package's
     ``ActorCritic`` parameters: the nested dict of numpy arrays that
@@ -90,18 +99,11 @@ def actor_critic_from_flax(params: dict) -> dict:
     ``Linear`` weight (out, in): kernels are transposed."""
     p = params.get("params", params)
     out = {}
-
-    def dense(name, leaves):
-        out[f"{name}.weight"] = torch.tensor(
-            np.asarray(leaves["kernel"], np.float32).T.copy())
-        out[f"{name}.bias"] = torch.tensor(
-            np.asarray(leaves["bias"], np.float32))
-
     for tower in ("pi_tower", "vf_tower"):
         for layer in sorted(p[tower], key=lambda k: int(k.split("_")[1])):
-            dense(f"{tower}.{layer}", p[tower][layer])
-    dense("action_head", p["action_head"])
-    dense("value_head", p["value_head"])
+            _dense_from_flax(out, f"{tower}.{layer}", p[tower][layer])
+    _dense_from_flax(out, "action_head", p["action_head"])
+    _dense_from_flax(out, "value_head", p["value_head"])
     out["log_std"] = torch.tensor(np.asarray(p["log_std"], np.float32))
     return out
 
@@ -131,4 +133,42 @@ def ppo_checkpoint_from_flax(params: dict, norm: dict = None,
             f.name: torch.tensor(np.asarray(norm[f.name], np.float32))
             for f in dataclasses.fields(NormState)
             if f.name != "env_returns"}
+    return out
+
+
+# the off-policy states' parameter trees and the port modules they fill
+_OFFPOLICY_TREES = (("actor_params", "actor"),
+                    ("actor_target_params", "actor_target"),
+                    ("q_params", "q"), ("q_target_params", "q_target"))
+
+
+def dense_stack_from_flax(params: dict) -> dict:
+    """A port module ``state_dict`` from flax parameters whose top level
+    is ``Dense`` layers by name (``sac.TanhGaussianActor``'s ``dense_i``,
+    ``mean``, ``log_std``; ``td3.DeterministicActor``'s ``out``;
+    ``sac.TwinQ``'s ``q1_dense_i`` ... ``q2_out``), with or without the
+    top ``"params"`` level."""
+    p = params.get("params", params)
+    out = {}
+    for layer in sorted(p):
+        _dense_from_flax(out, layer, p[layer])
+    return out
+
+
+def offpolicy_checkpoint_from_flax(state: dict) -> dict:
+    """A policy-only port SAC/TD3 checkpoint (``torch.save`` it as
+    ``<log-dir>/<algo>_torch/step_<global_step:010d>.pt``) from a JAX
+    ``SACState``/``TD3State``'s leaves as numpy by name:
+    ``actor_params``, ``q_params``, ``q_target_params``, TD3's
+    ``actor_target_params`` and SAC's ``log_alpha``, and ``global_step``
+    (the fields ``scripts/strip_offpolicy_ckpts.py`` keeps).  It holds
+    the networks, ``log_alpha`` and the step count, and no optimizer,
+    buffer or env state: what ``rl.checkpoint.restore_policy``
+    (``--eval-only``) reads."""
+    out = {module: dense_stack_from_flax(state[tree])
+           for tree, module in _OFFPOLICY_TREES if tree in state}
+    if "log_alpha" in state:
+        out["log_alpha"] = torch.tensor(np.asarray(state["log_alpha"],
+                                                   np.float32))
+    out["global_step"] = int(np.asarray(state["global_step"]))
     return out

@@ -85,7 +85,7 @@ def step_batch(model: Model, states: State, base_model: Model = None,
                    else "domain randomization with a compat manifold")
             raise NotImplementedError(
                 f"{why} need the staged DR fallback, which is not ported "
-                f"yet (ROADMAP.md Queue 1, item 3 'Staged DR fallback')")
+                f"yet (ROADMAP.md Queue 1, item 2 'Staged DR fallback')")
         kernel_model = base_model
         if names:
             params = dr_params(model, base_model, B)

@@ -1,6 +1,10 @@
-"""The PPO trainer, the random baseline, evaluation and checkpointing (the
-port of the JAX package's ``rl/``; SAC and TD3 are not ported yet)."""
+"""The PPO, SAC and TD3 trainers, the device replay buffer, the random
+baseline, evaluation and checkpointing (the port of the JAX package's
+``rl/``)."""
 from mujoco_playground_tpu_torch.rl import ppo  # noqa: F401
+from mujoco_playground_tpu_torch.rl import replay_buffer  # noqa: F401
+from mujoco_playground_tpu_torch.rl import sac  # noqa: F401
+from mujoco_playground_tpu_torch.rl import td3  # noqa: F401
 from mujoco_playground_tpu_torch.rl.config import (  # noqa: F401
     RLConfig,
     default_config,

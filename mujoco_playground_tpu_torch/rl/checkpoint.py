@@ -1,13 +1,18 @@
 """Checkpoint/resume with ``torch.save``: the whole train state.
 
 The port of the JAX package's ``rl/checkpoint.py``.  One file per save,
-``<dir>/step_{step:010d}.pt``, holds the network's parameters, the
-optimizer's state with its schedule count, the env states, the
+``<dir>/step_{step:010d}.pt``, holds, for PPO, the network's parameters,
+the optimizer's state with its schedule count, the env states, the
 normalization statistics, and the trainer's and the env's generator
-states, so that a resumed run reproduces the straight run.  The file is a
-dict of tensors and plain values (``torch.load(..., weights_only=True)``
-reads it).  The step count comes from the file name: the host's count is
-authoritative (``checkpoint_step``).
+states, so that a resumed run reproduces the straight run.  For SAC and
+TD3 (a state with ``MODULES``, ``OPTIMIZERS`` and ``TENSORS``) it holds
+the networks and their targets, every optimizer, ``log_alpha``, the
+replay buffer with its cursor and fill, the env states, both generators,
+the step and TD3's update count (~65 MB at the default buffer of
+100,000 rows of 79-wide observations).  The file is a dict of tensors and
+plain values (``torch.load(..., weights_only=True)`` reads it).  The step
+count comes from the file name: the host's count is authoritative
+(``checkpoint_step``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import os
 from typing import Optional
 
 import torch
+
+from mujoco_playground_tpu_torch.rl import replay_buffer as rb
 
 _SAVED_THIS_PROCESS = set()
 _SUFFIX = ".pt"
@@ -40,8 +47,48 @@ def _from_dict(template, d, device):
         for f in dataclasses.fields(template) if f.name in d})
 
 
+def _is_offpolicy(ts) -> bool:
+    return hasattr(ts, "MODULES")
+
+
+def _offpolicy_state_dict(st) -> dict:
+    d = {name: getattr(st, name).state_dict()
+         for name in st.MODULES + st.OPTIMIZERS}
+    d.update({name: getattr(st, name).detach() for name in st.TENSORS})
+    d.update(buffer=rb.state_dict(st.buffer),
+             env_states=_to_dict(st.env_states),
+             generator=st.generator.get_state(),
+             env_generator=(None if st.env_generator is None
+                            else st.env_generator.get_state()),
+             global_step=int(st.global_step))
+    if hasattr(st, "update_count"):
+        d["update_count"] = int(st.update_count)
+    return d
+
+
+def _load_offpolicy(st, d: dict, generators: bool = True):
+    for name in st.MODULES + st.OPTIMIZERS:
+        getattr(st, name).load_state_dict(d[name])
+    with torch.no_grad():
+        for name in st.TENSORS:
+            getattr(st, name).copy_(d[name])
+    if generators:
+        st.generator.set_state(d["generator"])
+        if st.env_generator is not None and d["env_generator"] is not None:
+            st.env_generator.set_state(d["env_generator"])
+    kw = {"update_count": int(d["update_count"])} \
+        if "update_count" in d else {}
+    return st.replace(
+        buffer=rb.load_state_dict(st.buffer, d["buffer"]),
+        env_states=_from_dict(st.env_states, d["env_states"],
+                              st.buffer.obs.device),
+        global_step=int(d["global_step"]), **kw)
+
+
 def state_dict(ts) -> dict:
     """The train state as a dict of tensors and plain values."""
+    if _is_offpolicy(ts):
+        return _offpolicy_state_dict(ts)
     return {
         "network": ts.network.state_dict(),
         "optimizer": ts.optimizer.state_dict(),
@@ -104,6 +151,8 @@ def load_state_dict(ts, d: dict, generators: bool = True):
     and optimizer are loaded in place and, with ``generators``, its
     generators' states are set; returns the train state.  Env-state and
     norm fields absent from ``d`` keep ``ts``'s values."""
+    if _is_offpolicy(ts):
+        return _load_offpolicy(ts, d, generators)
     device = ts.env_states.obs.device
     ts.network.load_state_dict(d["network"])
     ts.optimizer.load_state_dict(d["optimizer"])
@@ -124,8 +173,21 @@ def restore_policy(target: str, template):
     norm statistics (leaves absent from the file keep the template's) and
     its step count.  Reads what an evaluation needs and nothing else, so a
     policy-only file (``interop.ppo_checkpoint_from_flax``) restores too;
-    the optimizer, env states and generators stay the template's."""
+    the optimizer, env states and generators stay the template's.  For
+    SAC and TD3 it reads the networks the file holds
+    (``interop.offpolicy_checkpoint_from_flax`` writes the actor, the
+    critics and their targets), ``log_alpha`` and the step, and no
+    buffer."""
     d = torch.load(target, map_location="cpu", weights_only=True)
+    if _is_offpolicy(template):
+        for name in template.MODULES:
+            if name in d:
+                getattr(template, name).load_state_dict(d[name])
+        with torch.no_grad():
+            for name in template.TENSORS:
+                if name in d:
+                    getattr(template, name).copy_(d[name])
+        return template.replace(global_step=int(d["global_step"]))
     template.network.load_state_dict(d["network"])
     norm = template.norm
     if norm is not None and d.get("norm") is not None:

@@ -37,6 +37,34 @@ def orthogonal_(weight: torch.Tensor, gain: float,
     return weight
 
 
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Fill ``weight`` (out, in) as flax's default ``Dense`` kernel init,
+    ``lecun_normal``, draws it: a normal truncated to +-2 standard
+    deviations, scaled to a variance of ``1 / fan_in`` (std
+    ``sqrt(1 / fan_in) / 0.8796...``, the truncated unit normal's std
+    divided out), drawn from ``generator`` by the inverse CDF."""
+    fan_in = weight.shape[1]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo, hi = (0.5 * (1.0 + math.erf(x / math.sqrt(2.0))) for x in (-2.0, 2.0))
+    u = torch.rand(weight.shape, generator=generator, dtype=torch.float64)
+    z = math.sqrt(2.0) * torch.special.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+    with torch.no_grad():
+        weight.copy_((std * z.clamp(-2.0, 2.0)).to(weight.dtype))
+    return weight
+
+
+def dense_lecun(n_in: int, n_out: int,
+                generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """A ``Linear`` layer initialized as flax's default ``Dense``: a
+    ``lecun_normal`` weight and a zero bias (the off-policy learners')."""
+    layer = nn.Linear(n_in, n_out)
+    lecun_normal_(layer.weight, generator)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
 def _dense(n_in, n_out, gain, generator):
     layer = nn.Linear(n_in, n_out)
     orthogonal_(layer.weight, gain, generator)

@@ -1,23 +1,31 @@
 """Training CLI: the port of the JAX package's ``rl/train.py``.
 
-The same flags and defaults (--algo random/ppo, --maze, --timesteps,
---num-envs, --unroll, --normalize, --anneal-lr, --resume, --eval-only,
---profile, ...) plus --device: the CUDA card by default, ``cpu`` for the
-plain PyTorch versions of the kernels.  Without a CUDA device the entry
-points raise unless the CPU is asked for.  Checkpoints and
-``metrics.jsonl`` land in ``<log-dir>/ppo_torch/`` (``step_*.pt``), apart
-from the JAX trainer's ``<log-dir>/ppo/``, so the two trainers can share a
-``--log-dir`` without reading each other's files.
+The same flags and defaults (--algo random/ppo/sac/td3, --maze,
+--timesteps, --num-envs, --unroll, --normalize, --anneal-lr, --resume,
+--eval-only, --profile, ...) plus --device: the CUDA card by default,
+``cpu`` for the plain PyTorch versions of the kernels.  Without a CUDA
+device the entry points raise unless the CPU is asked for.  Checkpoints
+and ``metrics.jsonl`` land in ``<log-dir>/<algo>_torch/`` (``step_*.pt``;
+``ppo_torch``, ``sac_torch``, ``td3_torch``), apart from the JAX trainer's
+``<log-dir>/<algo>/``, so the two trainers can share a ``--log-dir``
+without reading each other's files.
+
+SAC and TD3 run at most 256 envs, 4 collect steps and 4 gradient steps
+per iteration, in chunks of ~100,000 env steps with one host read-back
+per chunk (``train_off_policy``).
 
 Examples:
     python -m mujoco_playground_tpu_torch.rl.train --algo random --episodes 100
     python -m mujoco_playground_tpu_torch.rl.train --algo ppo --maze umaze \\
         --num-envs 4096 --normalize --anneal-lr
+    python -m mujoco_playground_tpu_torch.rl.train --algo sac --maze umaze \\
+        --num-envs 256 --progress-reward 3
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import math
 import os
 import time
@@ -29,6 +37,8 @@ from mujoco_playground_tpu_torch.envs import (DomainRandomizedEnv,
                                               make_ackermann_env)
 from mujoco_playground_tpu_torch.rl import checkpoint as ckpt_lib
 from mujoco_playground_tpu_torch.rl import ppo
+from mujoco_playground_tpu_torch.rl import sac as sac_lib
+from mujoco_playground_tpu_torch.rl import td3 as td3_lib
 from mujoco_playground_tpu_torch.rl.config import RLConfig
 from mujoco_playground_tpu_torch.rl.evaluate import (deterministic_policy,
                                                      evaluate_agent)
@@ -36,7 +46,17 @@ from mujoco_playground_tpu_torch.rl.networks import ActorCritic
 from mujoco_playground_tpu_torch.rl.random_policy import run_random_baseline
 from mujoco_playground_tpu_torch.utils.logging import MetricsLogger
 
-CKPT_SUBDIR = "ppo_torch"   # under --log-dir; the JAX trainer uses "ppo"
+OFFPOLICY_MAX_ENVS = 256    # SAC/TD3 envs (the JAX trainer's cap)
+OFFPOLICY_LOG_STEPS = 100_000   # env steps per chunk (one read-back each)
+
+
+def ckpt_subdir(algo: str) -> str:
+    """The port's checkpoint directory of ``algo`` under --log-dir (the
+    JAX trainer uses ``algo`` itself)."""
+    return f"{algo}_torch"
+
+
+CKPT_SUBDIR = ckpt_subdir("ppo")
 
 
 def build_env(config: RLConfig, device=None):
@@ -196,6 +216,115 @@ def train_ppo(config: RLConfig, resume: bool = False, verbose: bool = True,
     return ts, env, network
 
 
+def train_off_policy(config: RLConfig, algo: str, total_timesteps: int,
+                     eval_episodes: int = 10, verbose: bool = True,
+                     resume: bool = False, eval_only: bool = False,
+                     device=None, env=None):
+    """The SAC/TD3 loop (``algo`` "sac" or "td3"); returns ``(state,
+    stats)``, the final evaluation's statistics.
+
+    ``config.num_envs`` is capped at 256.  An iteration is 4 collect steps
+    and 4 gradient steps (``4 * num_envs`` env steps); while the step count
+    is below ``sac_learning_starts`` the iterations collect with uniform
+    random actions, and run their gradient steps too, as the JAX loop's
+    do.  Then chunks of ``OFFPOLICY_LOG_STEPS // steps_per_iter``
+    iterations (the last one cut to the remaining budget) run with one
+    host read-back each: ``mean_reward`` averaged over the chunk, every
+    other metric its last value, ``steps_per_second`` the chunk's marginal
+    rate.  The full train state (buffer included) is saved every
+    ``save_freq`` env steps and at the end; ``--eval-only`` restores the
+    latest checkpoint's policy, evaluates it and writes nothing."""
+    config = dataclasses.replace(
+        config, num_envs=min(config.num_envs, OFFPOLICY_MAX_ENVS))
+    device = resolve_device(device)
+    log_dir = os.path.join(config.log_dir, ckpt_subdir(algo))
+    latest = (ckpt_lib.latest_checkpoint(log_dir)
+              if resume or eval_only else None)
+    if eval_only:
+        if latest is None:
+            raise SystemExit(f"--eval-only: no checkpoint under {log_dir}")
+        # evaluate a checkpoint of any width, as the JAX package does
+        hidden = sac_lib.actor_hidden_of(torch.load(
+            latest, map_location="cpu", weights_only=True)["actor"])
+        config = dataclasses.replace(config, offpolicy_hidden_sizes=hidden)
+    env = build_env(config, device) if env is None else env
+    mod = sac_lib if algo == "sac" else td3_lib
+    init, make_step = (sac_lib.make_sac(env, config) if algo == "sac"
+                       else td3_lib.make_td3(env, config))
+    state = init()
+
+    def evaluate(state):
+        stats = evaluate_agent(env, mod.deterministic_policy(state),
+                               num_episodes=eval_episodes)
+        if verbose:
+            print(f"[{algo}] eval: return {stats['mean_return']:.1f} "
+                  f"± {stats['std_return']:.1f}, "
+                  f"success {stats['success_rate']*100:.1f}%")
+        return stats
+
+    resume_gs = None
+    if latest:
+        restore = (ckpt_lib.restore_policy if eval_only
+                   else ckpt_lib.restore_checkpoint)
+        state = restore(latest, state)
+        resume_gs = ckpt_lib.checkpoint_step(latest)
+        if verbose:
+            print(f"[{algo}] resumed from {latest}")
+    if eval_only:
+        # read-only: no training loop, no logger, no save
+        return state, evaluate(state)
+    warmup_step = make_step(random_actions=True)
+    train_step = make_step(random_actions=False)
+    logger = MetricsLogger(log_dir)
+
+    steps_per_iter = 4 * config.num_envs
+    log_every = max(1, min(OFFPOLICY_LOG_STEPS, total_timesteps)
+                    // steps_per_iter)
+    # the checkpoint's name is the authoritative step count
+    start_gs = resume_gs if resume_gs is not None else state.global_step
+    gs = start_gs
+    next_save = (start_gs // config.save_freq + 1) * config.save_freq
+    while gs < config.sac_learning_starts and gs < total_timesteps:
+        state, _ = warmup_step(state)
+        gs += steps_per_iter
+    t0 = time.time()
+    while gs < total_timesteps:
+        # the final chunk is cut to the remaining budget, so the loop
+        # overshoots --timesteps by at most steps_per_iter - 1
+        niter = min(log_every,
+                    -(-(total_timesteps - gs) // steps_per_iter))
+        rewards = []
+        for _ in range(niter):
+            state, metrics = train_step(state)
+            rewards.append(metrics["mean_reward"])
+        metrics["mean_reward"] = torch.stack(rewards).mean()
+        # the chunk's one read-back (it waits for the device)
+        names = [k for k, v in metrics.items()
+                 if isinstance(v, torch.Tensor)]
+        values = torch.stack([metrics[k].detach().float().reshape(())
+                              for k in names]).tolist()
+        metrics = {**metrics, **dict(zip(names, values))}
+        t1 = time.time()
+        gs += steps_per_iter * niter
+        # marginal rate over this chunk (the first chunk's includes the
+        # warm-up's queued work)
+        metrics["steps_per_second"] = (steps_per_iter * niter
+                                       / max(t1 - t0, 1e-9))
+        t0 = t1
+        logger.log(gs, metrics)
+        if verbose:
+            print(f"[{algo}] step {gs:>9d} | "
+                  f"reward/step {metrics['mean_reward']:+8.3f} | "
+                  f"{metrics['steps_per_second']/1e3:7.1f}k sps")
+        if gs >= next_save:
+            path = ckpt_lib.save_checkpoint(log_dir, state, gs)
+            next_save = (gs // config.save_freq + 1) * config.save_freq
+            if verbose:
+                print(f"  checkpoint -> {path}")
+    ckpt_lib.save_checkpoint(log_dir, state, gs)
+    return state, evaluate(state)
+
+
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train Ackermann Robot RL Agent")
     p.add_argument("--algo", default="random",
@@ -228,7 +357,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--anneal-lr", action="store_true")
     p.add_argument("--hidden", type=int, nargs="+", default=None,
                    help="policy/value tower widths (default 64 64 for PPO, "
-                        "the reference checkpoint's)")
+                        "the reference checkpoint's; 256 256 for SAC/TD3, "
+                        "SB3's off-policy default)")
     p.add_argument("--reference-compat", action="store_true",
                    help="reproduce the reference env's artifacts exactly "
                         "(stale-obs stepping + lidar name-aliasing bug)")
@@ -306,15 +436,15 @@ def config_from_args(args) -> RLConfig:
 
 def main(argv=None):
     """The CLI; returns the final evaluation's statistics (``--algo
-    ppo``)."""
+    ppo|sac|td3``)."""
     args = make_parser().parse_args(argv)
     config = config_from_args(args)
-    if args.algo in ("sac", "td3"):
-        raise NotImplementedError(
-            f"--algo {args.algo} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 1 'Off-policy')")
     if args.eval_only and args.algo == "random":
-        raise SystemExit("--eval-only needs a checkpointing algo (ppo)")
+        raise SystemExit("--eval-only needs a checkpointing algo "
+                         "(ppo/sac/td3)")
+    if args.algo in ("sac", "td3"):
+        config = dataclasses.replace(
+            config, num_envs=min(config.num_envs, OFFPOLICY_MAX_ENVS))
     device = resolve_device(args.device)
 
     print("=" * 60)
@@ -332,6 +462,13 @@ def main(argv=None):
 
     if args.algo == "random":
         run_random_baseline(env, episodes=args.episodes, seed=args.seed)
+    elif args.algo in ("sac", "td3"):
+        _, stats = train_off_policy(config, args.algo, args.timesteps,
+                                    eval_episodes=args.eval_episodes,
+                                    resume=args.resume,
+                                    eval_only=args.eval_only, device=device,
+                                    env=env)
+        return stats
     elif args.algo == "ppo":
         ts, env, network = train_ppo(config, resume=args.resume,
                                      profile_dir=args.profile,

@@ -60,15 +60,15 @@ def port_path(path):
                         f"step_{checkpoint_step(path):010d}.pt")
 
 
-def eval_draws(jenv, heading_noise):
+def eval_draws(jenv, heading_noise, episodes=EPISODES):
     """The episodes of EVAL.json's protocol as numpy: the JAX env's
-    ``reset_core`` of each key of ``split(PRNGKey(EVAL_SEED), EPISODES)``,
+    ``reset_core`` of each key of ``split(PRNGKey(EVAL_SEED), episodes)``,
     read back as spawn xy, goal xy (world) and goal cell, and the spawn yaw
     each key draws (its split replayed, as ``reset_core`` draws it) under
     ``heading_noise``.  Run with x64 off, as the evaluation was (under x64
     ``randint`` draws other bits)."""
     import jax.numpy as jnp
-    keys = jax.random.split(jax.random.PRNGKey(EVAL_SEED), EPISODES)
+    keys = jax.random.split(jax.random.PRNGKey(EVAL_SEED), episodes)
     core = jax.jit(jax.vmap(jenv.reset_core))(keys)
     f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
     out = dict(

@@ -141,3 +141,25 @@ def force_warmstart_pick(monkeypatch):
     monkeypatch.setattr(k1, "check_variant", lambda *a, **kw: None)
     monkeypatch.setattr(k1, "step_fused", lambda *a, **kw: step_fused(
         *a, **{**kw, "ws_compare": True}))
+
+
+def jax_offpolicy_leaves(jstate):
+    """A JAX ``SACState``/``TD3State``'s parameter trees, ``log_alpha`` and
+    ``global_step`` as numpy, by field name (what
+    ``interop.offpolicy_checkpoint_from_flax`` takes)."""
+    import jax
+    return {f.name: jax.tree_util.tree_map(np.asarray,
+                                           getattr(jstate, f.name))
+            for f in dataclasses.fields(jstate)
+            if f.name.endswith("_params")
+            or f.name in ("log_alpha", "global_step")}
+
+
+def carry_offpolicy_params(pstate, jstate):
+    """The JAX state's networks and ``log_alpha`` into the port state's."""
+    d = interop.offpolicy_checkpoint_from_flax(jax_offpolicy_leaves(jstate))
+    for name in pstate.MODULES:
+        getattr(pstate, name).load_state_dict(d[name])
+    with torch.no_grad():
+        for name in pstate.TENSORS:
+            getattr(pstate, name).copy_(d[name])

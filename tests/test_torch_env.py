@@ -155,7 +155,7 @@ def test_env_state_arrays_round_trip(envs):
     dict(reference_delayed_obs=True), dict(physics_substeps=2)])
 def test_unported_configurations_raise(knob):
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, item 2 'Reference-compat"):
+                       match="ROADMAP.md Queue 1, item 1 'Reference-compat"):
         make_ackermann_env("maze", "umaze", device="cpu", **knob)
 
 

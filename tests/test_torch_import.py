@@ -36,7 +36,7 @@ def test_port_imports_without_jax():
 def test_every_module_of_the_port_is_checked():
     """The import check walks the package: the modules of each slice are in
     it (the staged step, domain randomization, the Newton kernel, the
-    trainer, the geodesic fields)."""
+    trainer, the geodesic fields, the off-policy learners)."""
     mods = set(_modules())
     for m in ("envs.domain_randomization", "envs.geodesic",
               "physics.batchlast",
@@ -44,6 +44,7 @@ def test_every_module_of_the_port_is_checked():
               "physics.linalg_small", "physics.solver_batched",
               "ops.newton", "ops.step", "ops.lidar", "interop",
               "rl", "rl.config", "rl.networks", "rl.ppo", "rl.checkpoint",
+              "rl.replay_buffer", "rl.sac", "rl.td3",
               "rl.evaluate", "rl.random_policy", "rl.train", "rl.utils",
               "utils", "utils.logging", "utils.profiler"):
         assert f"mujoco_playground_tpu_torch.{m}" in mods, m
