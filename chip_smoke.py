@@ -14,6 +14,19 @@ ls_iterations=3)`` with uniform random actions:
 * path B: the same env with the compat manifolds
   (``reference_flat_manifold``, ``reference_wheel_patch``): the staged step
   through kernel K3, the observation through K2;
+* the reference-compat knobs, the staged DR fallback and DR with heading
+  noise (``compat_paths``), each with its exact launch counts: path R
+  (``reference_delayed_obs`` and ``reference_lidar_aliasing``, 200 steps:
+  K1 ``<0,0,0>`` once and K2 twice a step, obs columns 0-9 equal to 71);
+  path R under the default randomization (200 steps: K1e ``<0,0,0,dr>``,
+  K2 with each env's floor on the pre-step physics, K2 on the fresh
+  batch); path S (two physics substeps, 50 steps: K1 ``<0,0,0>`` and the
+  fused K1 once each a step); path C, the default randomization over the
+  compat manifolds (100 steps: K3 once and K2 with each env's floor twice
+  a step; identical starts and actions spread qvel), and at 1024 envs on
+  the default manifolds with per-env joint ranges (20 steps, K3 every
+  step); path A with ``spawn_heading_noise`` (50 steps: K1e
+  ``<1,0,0,dr>`` and K2 with each env's floor once a step);
 * the trainer: ``rl.train.main`` with the README's PPO recipe at 4096
   umaze envs (``--algo ppo --maze umaze --num-envs 4096 --normalize
   --anneal-lr``) for 3 iterations, K1 on every rollout and evaluation step
@@ -22,6 +35,12 @@ ls_iterations=3)`` with uniform random actions:
   card held against the same update on the CPU (and, as a control that
   the check sees TF32, the same with TF32 matmuls on, which must miss),
   and the iteration's times;
+* the reference-compat trainer (``compat_trainer_phase``):
+  ``rl.train.main`` with ``--reference-compat`` at 4096 envs on the open
+  floor for 3 iterations and a resume of one, K1 ``<0,0,0>`` exactly once
+  per rollout and evaluation step and K2 twice per rollout step, the
+  rollouts' mean reward per step in [-52, -49] (every step pays the -50
+  collision penalty there), and training env-steps/s;
 * the solved recipe (README.md: 256x256 towers, the geodesic shaping and
   the goal compass, obs 81, gamma 0.995, 6000-step episodes) through
   ``rl.train.main`` at 4096 envs, as written and with
@@ -56,7 +75,12 @@ ls_iterations=3)`` with uniform random actions:
   (``eval_seed0.npz``): each success rate within 3 binomial standard
   deviations of EVAL.json's, and the median mean return over those
   episodes and 16 copies with every spawn moved by one float32 ulp within
-  3 standard errors of EVAL.json's (``NUDGES``).
+  3 standard errors of EVAL.json's (``NUDGES``);
+* the per-env step (``per_env_phase``): 8 umaze envs stepped one at a time
+  through ``AckermannEnv.step`` (plain PyTorch on the card) for 20 steps,
+  each step held against ``engine.staged_step`` (K3) on the same envs as a
+  batch, and the same envs' per-env step on the CPU held against the
+  card's.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -66,7 +90,12 @@ same inputs (the bits must repeat) and timed beside its bound twice: by
 CUDA events around each wrapper call (``ms``, the host's launch path
 included, as the plain twins are timed) and by one replay of a CUDA graph
 of the calls (``device_ms``, the kernel alone).  K3 is also held against its twin with every
-contact row in contact, which overflows its block's pool of rows.  It
+contact row in contact, which overflows its block's pool of rows.  The
+plain physics step (K1 ``<0,0,0>``, K1e ``<0,0,0,dr>``) is held on
+wall-contact states at 1024 envs and on path R's (strictly) and path R
+under DR's states at 16384, K2 with a per-env floor on path C's frames and
+the default randomization's floors; K2's launches with a per-env floor
+are counted apart (``K2f``), and K1's and K1e's by flag set.  It
 prints the kernels' ptxas lines and occupancy, one JSON line of kernel
 numbers and, last, the device line.  Exits non-zero on any failure, and
 when no CUDA device exists.
@@ -100,6 +129,16 @@ SAME_STEPS = 10       # of those, from one shared start with shared actions
 STAGED_STEPS = 200    # path B env steps (spawned robots land by ~100)
 STAGED_WARMUP = 20
 STAGED_PROFILE = 5
+# the reference-compat knobs, the staged DR fallback and DR with heading
+# noise (compat_paths): path R and path R under DR run STEPS steps (the
+# plain steps' kernel checks take their last states: envs in contact as on
+# the main path's), path S SUBSTEP_STEPS, path C STAGED_DR_STEPS (path B's
+# step takes ~0.15 s), path C at B_CHECK with per-env joint ranges
+# JNT_RANGE_STEPS, path A with heading noise HEADING_STEPS
+SUBSTEP_STEPS = 50
+STAGED_DR_STEPS = 100
+JNT_RANGE_STEPS = 20
+HEADING_STEPS = 50
 # the trainer phase: the README's PPO recipe (64x64 tanh ActorCritic, T=32,
 # 10 epochs x 32 minibatches, blocks of 128 rows, 4 Newton and 3 line-search
 # iterations) at 4096 umaze envs
@@ -107,6 +146,24 @@ TRAIN_FLAGS = ["--algo", "ppo", "--maze", "umaze", "--num-envs", "4096",
                "--normalize", "--seed", str(SEED)]
 TRAIN_ITERS = 3       # iterations of the main run; the resume adds one
 TIMED_ITERS = 3       # iterations timed by CUDA events after one warm-up
+# the reference-compat trainer (compat_trainer_phase): --reference-compat
+# at 4096 envs on the CLI's default arena, the open floor; there every
+# no-hit beam counts as a collision, so the reward per step is the -50
+# penalty, -0.01 and -0.1 x the goal distance: the bounds
+# tests/test_env_parity.py holds the JAX env to
+COMPAT_TRAIN = ["--algo", "ppo", "--reference-compat", "--num-envs", "4096",
+                "--seed", str(SEED)]
+REWARD_BOUNDS = (-52.0, -49.0)
+# the per-env step (per_env_phase): PER_ENV_B envs one at a time for
+# PER_ENV_STEPS steps.  Against the staged step on the same inputs: qpos
+# 1e-6; qvel 1e-4 of 1 + the env's largest |qvel| (the two solve the same
+# system in float32, summing in other orders; ~1e-6 on the CPU against
+# JAX's per-env step, tests/test_torch_per_env_step.py).  The CPU's per-env
+# step against the card's, each step from the card's states: 1e-4 (the
+# same program, other libraries' rounding).
+PER_ENV_B = 8
+PER_ENV_STEPS = 20
+PER_ENV_TOL = dict(qpos=1e-6, qvel=1e-4, cpu=1e-4)
 # the solved phase: README.md's solved recipe (256x256 towers, obs 81, the
 # geodesic shaping and the goal compass, gamma 0.995, 6000-step episodes)
 # at 4096 umaze envs, as written and with a random spawn heading; then the
@@ -188,6 +245,12 @@ K1_TOL = dict(qpos=(1e-6, 0.0), qvel=(1e-5, 3e-4), xpos=(1e-6, 0.0),
               xquat=(1e-6, 0.0), qacc=(1e-2, 3e-4), slab=(1e-5, 1e-4))
 K1_NORMWISE = ("qvel", "qacc")
 K2_TOL = (5e-6, 0.0)
+# K2 with a per-env floor, held on path C's stepped frames: tilted robots
+# aim beams at the floor, and a beam that meets it at a grazing angle
+# loses relative precision (~1e-5 of the reading), as K1's fused scans on
+# stepped frames do: K1's slab tolerance (K2_TOL holds reset frames, whose
+# beams are level)
+K2F_TOL = K1_TOL["slab"]
 # K3's qacc against its twin, per env and normwise like K1's qacc: the
 # kernel and the twin sum the Hessian and gradients over the contact rows
 # in different orders (the kernel row by row over the rows in contact, the
@@ -426,6 +489,8 @@ def k1_witness(args, gen, dr_params=None):
     def witness(ids, got):
         def run(dtype, nudged):
             def sub(t, move=False):
+                if t is None:
+                    return None
                 t = t[:, ids].contiguous()
                 return (nudge(t, gen) if move and nudged else t).to(dtype)
             return k1_views(k1.step_plain(
@@ -465,9 +530,10 @@ def check_repeat(label, first, second, failures):
         failures.append(f"{label} repeat")
 
 
-def check_k2(label, got, want, failures):
-    err, _, excess = max_err(got, want, *K2_TOL)
-    print(f"check K2 {label}: max |err| {err:.3e} (tol {K2_TOL[0]:g})")
+def check_k2(label, got, want, failures, tol=K2_TOL):
+    err, rel, excess = max_err(got, want, *tol)
+    print(f"check K2 {label}: max |err| {err:.3e}, max |err|/|ref| "
+          f"{rel:.3e} (tol {tol[0]:g} + {tol[1]:g}|ref|)")
     if not math.isfinite(err) or excess > 0:
         failures.append(f"K2 {label}")
     return err
@@ -558,7 +624,7 @@ def chol_ops(pat, order):
     return fac, 2 * (2 * int(np.tril(L, -1).sum()) + len(p))
 
 
-def k1_ops(model, slot_active, fresh=True, ws_compare=False):
+def k1_ops(model, slot_active, fresh=True, ws_compare=False, env=True):
     """Float32 operations one env step of K1 needs (an FMA counts 2),
     counted over the structural nonzeros only, as the TPU kernel's static
     pruning keeps them: each body's Jacobian over its ancestor dofs (CRBA,
@@ -567,7 +633,8 @@ def k1_ops(model, slot_active, fresh=True, ws_compare=False):
     leaves-first order, and only the contact rows this run's data makes
     active (``slot_active``: each slot's mean activity over the envs).  The
     per-stage constants are the operations of the kernel's code
-    (csrc/step_model.cuh, step_newton.cuh, lidar.cuh)."""
+    (csrc/step_model.cuh, step_newton.cuh, lidar.cuh).  ``env=False``: the
+    plain physics step (``<0,0,0>``), without the scans and env rows."""
     from mujoco_playground_tpu_torch.ops import step as k1
     sm = k1.static_model(model)
     nv, nbox, ns = sm.nv, sm.num_scene_boxes, sm.nsite
@@ -615,10 +682,10 @@ def k1_ops(model, slot_active, fresh=True, ws_compare=False):
     ws = (2 * (12 * nj + contacts(lambda k: 6 * k + 24)) + 2 * nnz_m + 36
           if ws_compare else 0)
     euler = 2 * nnz_m + 4 * nv + fac_m + sol_m + nv + 56 + 2 * (nv - 6)
-    lidar = (2 if fresh else 1) * ns * (72 + 27 * nbox)
-    env = 60 + ns + (8 * sm.nbody if fresh else 0)
+    lidar = (int(env) + int(fresh)) * ns * (72 + 27 * nbox)
+    env_rows = (60 + ns + (8 * sm.nbody if fresh else 0)) if env else 0
     return (2 * fk + crba + rnea + smooth + collide + rows
-            + sm.iterations * newton_it + ws + euler + lidar + env)
+            + sm.iterations * newton_it + ws + euler + lidar + env_rows)
 
 
 def bound_ms(nbytes, flops):
@@ -660,15 +727,20 @@ def reset_counts():
     from mujoco_playground_tpu_torch.ops import newton as k3
     from mujoco_playground_tpu_torch.ops import step as k1
     k1.step_fused.launches = k1.step_fused.launches_dr = 0
-    k2.lidar.launches = k3.newton_solve.launches = 0
+    k1.step_fused.by_variant.clear()
+    k2.lidar.launches = k2.lidar.launches_floor = 0
+    k3.newton_solve.launches = 0
 
 
 def read_counts():
+    """Launches since reset_counts: K1, K1e, K2 with the model's floor, K2
+    with a per-env floor (K2f) and K3."""
     from mujoco_playground_tpu_torch.ops import lidar as k2
     from mujoco_playground_tpu_torch.ops import newton as k3
     from mujoco_playground_tpu_torch.ops import step as k1
     return {"K1": k1.step_fused.launches, "K1e": k1.step_fused.launches_dr,
-            "K2": k2.lidar.launches, "K3": k3.newton_solve.launches}
+            "K2": k2.lidar.launches, "K3": k3.newton_solve.launches,
+            "K2f": k2.lidar.launches_floor}
 
 
 def check_finite(label, states, obs_size, B):
@@ -717,6 +789,191 @@ def _tree_diff(a, b):
         return 0.0, a == b
     return (max((d for d, _ in out), default=0.0),
             all(e for _, e in out))
+
+
+# K1_VARIANTS keys: <with_env, with_fresh, ws_compare, dr>
+FUSED = (True, True, False, False)
+PLAIN = (False, False, False, False)
+PLAIN_DR = (False, False, False, True)
+ENV_DR = (True, False, False, True)
+
+
+def read_variants():
+    """K1 and K1e launches since reset_counts, by flag set."""
+    from mujoco_playground_tpu_torch.ops import step as k1
+    return dict(k1.step_fused.by_variant)
+
+
+def shifted_ranges(model, B):
+    """Per-env joint ranges: the limited joints' ranges shifted by -0.7 ..
+    0.7 rad across the B envs, so that q = 0 lies outside some envs'."""
+    rng = model.jnt_range.expand((B,) + model.jnt_range.shape).clone()
+    shift = torch.linspace(-0.7, 0.7, B, device=rng.device)
+    for d in model.limited_dofs:
+        rng[:, model.dof_jnt[d]] += shift[:, None]
+    return rng
+
+
+def run_path(label, step, states, n, warmup, t0, t1, want, variants, card):
+    """n steps of ``states = step(states, i)`` after a reset already
+    counted; CUDA events over steps warmup..n.  Fails unless the launch
+    counts equal ``want`` and the K1/K1e counts by flag set ``variants``.
+    Returns (states, counts, ms per env step)."""
+    for i in range(n):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0.record()
+        states = step(states, i)
+    t1.record()
+    torch.cuda.synchronize()
+    counts, by_variant = read_counts(), read_variants()
+    ms = t0.elapsed_time(t1) / (n - warmup)
+    B = states.steps.shape[0]
+    print(f"{label}: B={B}, {n} steps, launches {counts}, K1/K1e by flag "
+          f"set <env,fresh,ws_compare,dr> {by_variant}, {ms:.4f} ms/env "
+          f"step, {B / ms * 1e3:.0f} env-steps/s ({card})")
+    if counts != want or by_variant != variants:
+        fail(f"{label}: launches {counts} {by_variant}, expected {want} "
+             f"{variants}")
+    return states, counts, ms
+
+
+def compat_paths(card, dev, env, cenv, random_actions, t0, t1):
+    """Paths R, R under DR, S, C (and C at B_CHECK with per-env joint
+    ranges) and A with heading noise (module docstring), each with its
+    exact launch counts.  Returns each path's last states, models and
+    counts for the kernel checks at the paths' shapes."""
+    from mujoco_playground_tpu_torch.envs import (DomainRandomizedEnv,
+                                                  RandomizationConfig,
+                                                  make_ackermann_env,
+                                                  randomize_model)
+    solver = dict(solver_iterations=4, ls_iterations=3, seed=SEED)
+    out = {}
+
+    def step_of(e, same=None):
+        def step(s, i):
+            a = same if same is not None and i < SAME_STEPS else \
+                random_actions()
+            return e.step_autoreset_batch(s, a)
+        return step
+
+    # path R: delayed obs + lidar aliasing (--reference-compat)
+    renv = make_ackermann_env("maze", "umaze", reference_delayed_obs=True,
+                              reference_lidar_aliasing=True, **solver)
+    reset_counts()
+    st, counts, ms = run_path(
+        "path R (delayed obs + aliasing)", step_of(renv),
+        renv.reset(B_MAIN), STEPS, WARMUP, t0, t1,
+        {"K1": STEPS, "K1e": 0, "K2": 2 * STEPS + 1, "K3": 0, "K2f": 0},
+        {PLAIN: STEPS}, card)
+    check_finite("path R", st, renv.obs_size, B_MAIN)
+    alias = bool((st.obs[:, :10] == st.obs[:, 71:72]).all())
+    print(f"path R: obs columns 0-9 equal column 71: {alias}")
+    if not alias:
+        fail("path R: the aliased lidar columns differ from beam 71")
+    out["R"] = dict(states=st, counts=counts, ms=ms)
+
+    def r_step():
+        nonlocal st
+        st = renv.step_autoreset_batch(st, random_actions())
+
+    profile_steps("path R", r_step, PROFILE_STEPS, card)
+
+    # path R under the default randomization: K1e <0,0,0,dr>, the pre-step
+    # observation through K2 with each env's floor, the fresh batch's on
+    # the base model's
+    rdr = DomainRandomizedEnv(
+        renv, B_MAIN, torch.Generator(device=dev).manual_seed(SEED + 7),
+        RandomizationConfig())
+    reset_counts()
+    st, counts, ms = run_path(
+        "path R under DR", step_of(rdr), rdr.reset(), STEPS, WARMUP, t0,
+        t1, {"K1": 0, "K1e": STEPS, "K2": STEPS + 1, "K3": 0, "K2f": STEPS},
+        {PLAIN_DR: STEPS}, card)
+    check_finite("path R under DR", st, renv.obs_size, B_MAIN)
+    out["RD"] = dict(states=st, counts=counts, ms=ms, models=rdr.models)
+
+    # path S: two physics substeps
+    senv = make_ackermann_env("maze", "umaze", physics_substeps=2, **solver)
+    reset_counts()
+    st, counts, ms = run_path(
+        "path S (two physics substeps)", step_of(senv), senv.reset(B_MAIN),
+        SUBSTEP_STEPS, WARMUP, t0, t1,
+        {"K1": 2 * SUBSTEP_STEPS, "K1e": 0, "K2": 1, "K3": 0, "K2f": 0},
+        {PLAIN: SUBSTEP_STEPS, FUSED: SUBSTEP_STEPS}, card)
+    check_finite("path S", st, senv.obs_size, B_MAIN)
+    out["S"] = dict(counts=counts, ms=ms)
+
+    # path C: the staged DR fallback, the default randomization over the
+    # compat manifolds; identical starts and actions for SAME_STEPS steps,
+    # so only the parameters spread the velocities
+    cdr = DomainRandomizedEnv(
+        cenv, B_MAIN, torch.Generator(device=dev).manual_seed(SEED + 5),
+        RandomizationConfig())
+    same = random_actions()[:1].expand(B_MAIN, 2)
+    spread = {}
+
+    def c_step(s, i):
+        s = cdr.step_autoreset_batch(s, same if i < SAME_STEPS
+                                     else random_actions())
+        spread.setdefault("done", torch.zeros_like(s.done))
+        if i < SAME_STEPS:
+            spread["done"] |= s.done
+        if i == SAME_STEPS - 1:
+            spread["std"] = float(
+                s.physics.qvel[~spread["done"]].std(0).max())
+        return s
+
+    reset_counts()
+    st, counts, ms = run_path(
+        "path C (staged DR fallback, compat manifolds)", c_step,
+        cdr.reset(core=expand_tree(cenv.reset_core(1), B_MAIN)),
+        STAGED_DR_STEPS, STAGED_WARMUP, t0, t1,
+        {"K1": 0, "K1e": 0, "K2": 1, "K3": STAGED_DR_STEPS,
+         "K2f": 2 * STAGED_DR_STEPS}, {}, card)
+    print(f"path C: after {SAME_STEPS} steps from one shared start with "
+          f"one shared action, max over dofs of the std of qvel: "
+          f"{spread['std']:.4e}")
+    if not spread["std"] > 1e-4:
+        fail("path C: identical starts and actions did not spread qvel")
+    check_finite("path C", st, cenv.obs_size, B_MAIN)
+    out["C"] = dict(states=st, counts=counts, ms=ms, models=cdr.models)
+
+    # the staged DR fallback on the default manifolds: per-env joint ranges
+    # (outside DR_SUPPORTED) beside the default randomization, B_CHECK envs
+    model = env.model
+    models = randomize_model(model, torch.Generator(
+        device=dev).manual_seed(SEED + 8), B_CHECK)
+    models = dataclasses.replace(models,
+                                 jnt_range=shifted_ranges(model, B_CHECK))
+    acts = torch.Generator(device=dev).manual_seed(SEED + 9)
+    reset_counts()
+    st, counts, ms = run_path(
+        "path C, default manifolds, per-env joint ranges",
+        lambda s, i: env.step_autoreset_batch(
+            s, torch.rand((B_CHECK, 2), generator=acts, device=dev) * 2 - 1,
+            models=models, base_model=model),
+        env.reset(B_CHECK), JNT_RANGE_STEPS, 5, t0, t1,
+        {"K1": 0, "K1e": 0, "K2": 1, "K3": JNT_RANGE_STEPS,
+         "K2f": 2 * JNT_RANGE_STEPS}, {}, card)
+    check_finite("path C with joint ranges", st, env.obs_size, B_CHECK)
+
+    # path A with heading noise: K1e <1,0,0,dr>, then the merged state
+    # observed through K2 with each env's floor
+    henv = make_ackermann_env("maze", "umaze",
+                              spawn_heading_noise=3.14159265, **solver)
+    hdr = DomainRandomizedEnv(
+        henv, B_MAIN, torch.Generator(device=dev).manual_seed(SEED + 6),
+        RandomizationConfig())
+    reset_counts()
+    st, counts, ms = run_path(
+        "path A with heading noise", step_of(hdr), hdr.reset(),
+        HEADING_STEPS, WARMUP, t0, t1,
+        {"K1": 0, "K1e": HEADING_STEPS, "K2": 1, "K3": 0,
+         "K2f": HEADING_STEPS}, {ENV_DR: HEADING_STEPS}, card)
+    check_finite("path A with heading noise", st, henv.obs_size, B_MAIN)
+    out["AH"] = dict(counts=counts, ms=ms)
+    return out
 
 
 def trainer_phase(card, dev):
@@ -776,7 +1033,7 @@ def trainer_phase(card, dev):
         got = read_counts()
         want = {"K1": settle["K1"] + iters * T + 2 * one_eval["K1"],
                 "K2": settle["K2"] + 1 + 2 * one_eval["K2"], "K1e": 0,
-                "K3": 0}
+                "K3": 0, "K2f": 0}
         print(f"trainer {label}: {time.perf_counter() - t0:.1f} s, launches "
               f"{got}; expected {want} = settle + {iters} x {T} rollout "
               f"steps + 2 evaluations (in the loop and main's), K2 at the "
@@ -854,17 +1111,7 @@ def trainer_phase(card, dev):
           f"{len(syncs)} {syncs[:3]}")
     if syncs:
         fail("trainer: an iteration waits on the card")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    r_ms, u_ms = [], []
-    for _ in range(TIMED_ITERS):
-        ev[0].record()
-        ts, data, _ = rollout(ts)
-        ev[1].record()
-        ts, _ = update(ts, data)
-        ev[2].record()
-        torch.cuda.synchronize()
-        r_ms.append(ev[0].elapsed_time(ev[1]))
-        u_ms.append(ev[1].elapsed_time(ev[2]))
+    ts, r_ms, u_ms = timed_iterations(rollout, update, ts, TIMED_ITERS)
     roll_ms, upd_ms = sum(r_ms) / TIMED_ITERS, sum(u_ms) / TIMED_ITERS
     obs = ts.env_states.obs
 
@@ -977,6 +1224,202 @@ def trainer_phase(card, dev):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def timed_iterations(rollout, update, ts, n):
+    """n more PPO iterations from ts: (ts, each rollout's ms, each update's
+    ms), by CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    r_ms, u_ms = [], []
+    for _ in range(n):
+        ev[0].record()
+        ts, data, _ = rollout(ts)
+        ev[1].record()
+        ts, _ = update(ts, data)
+        ev[2].record()
+        torch.cuda.synchronize()
+        r_ms.append(ev[0].elapsed_time(ev[1]))
+        u_ms.append(ev[1].elapsed_time(ev[2]))
+    return ts, r_ms, u_ms
+
+
+def compat_trainer_phase(card, dev):
+    """``rl.train.main`` with ``--reference-compat`` (delayed obs and lidar
+    aliasing) at 4096 envs on the open floor, the CLI's default arena and
+    that of PARITY.md's reproduction of the reference's collapse: 3
+    iterations and a resume of one, K1 <0,0,0> once per rollout and
+    evaluation step, K2 twice per rollout step (the pre-step observation
+    and the fresh batch) and once per evaluation step; the rollout's mean
+    reward per step within REWARD_BOUNDS; training env-steps/s."""
+    from mujoco_playground_tpu_torch.rl import checkpoint as ckpt_lib
+    from mujoco_playground_tpu_torch.rl import ppo
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    from mujoco_playground_tpu_torch.rl.evaluate import (deterministic_policy,
+                                                         evaluate_agent)
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_compat")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def cli(steps, *extra):
+        return (COMPAT_TRAIN + ["--timesteps", str(steps), "--log-dir",
+                                work] + list(extra))
+
+    cfg = train_lib.config_from_args(train_lib.make_parser().parse_args(
+        cli(0)))
+    T, B = cfg.unroll_length, cfg.num_envs
+    spi = T * B
+    reset_counts()
+    env = train_lib.build_env(cfg, dev)
+    settle = read_counts()
+    net0 = train_lib.make_network(cfg, env)
+    reset_counts()
+    evaluate_agent(env, deterministic_policy(net0),
+                   num_episodes=cfg.eval_episodes)
+    one_eval, eval_variants = read_counts(), read_variants()
+    print(f"compat trainer parts: arena {env.arena}, the env's settle "
+          f"launches {settle}; one evaluation of {cfg.eval_episodes} "
+          f"episodes x {cfg.max_episode_steps} steps launches {one_eval} "
+          f"{eval_variants}")
+    if eval_variants != {PLAIN: cfg.max_episode_steps}:
+        fail(f"compat trainer: an evaluation launched {eval_variants}")
+
+    def run(label, argv, iters):
+        reset_counts()
+        t0 = time.perf_counter()
+        train_lib.main(argv)
+        torch.cuda.synchronize()
+        got, variants = read_counts(), read_variants()
+        want = {"K1": settle["K1"] + iters * T + 2 * one_eval["K1"],
+                "K1e": 0, "K2": settle["K2"] + 1 + 2 * iters * T
+                + 2 * one_eval["K2"], "K3": 0, "K2f": 0}
+        print(f"compat trainer {label}: {time.perf_counter() - t0:.1f} s, "
+              f"launches {got} {variants}; expected {want} = {iters} x {T} "
+              f"rollout steps (K1 <0,0,0> and two K2 each) + 2 evaluations "
+              f"+ the init reset's K2")
+        if got != want or set(variants) != {PLAIN}:
+            fail(f"compat trainer {label}: launches {got} {variants}, "
+                 f"expected {want}")
+
+    run(f"main run ({TRAIN_ITERS} iterations)", cli(TRAIN_ITERS * spi),
+        TRAIN_ITERS)
+    run("resume (1 iteration)", cli((TRAIN_ITERS + 1) * spi, "--resume"), 1)
+    ckpts = os.path.join(work, train_lib.CKPT_SUBDIR)
+    latest = ckpt_lib.latest_checkpoint(ckpts)
+    if ckpt_lib.checkpoint_step(latest) != (TRAIN_ITERS + 1) * spi:
+        fail(f"compat trainer: the last checkpoint is {latest}")
+    with open(os.path.join(ckpts, "metrics.jsonl")) as f:
+        rewards = [json.loads(x)["mean_reward"] for x in f
+                   if "mean_reward" in x]
+    lo, hi = REWARD_BOUNDS
+    print(f"compat trainer: the rollouts' mean reward per step {rewards} "
+          f"(bounds [{lo}, {hi}]: the -50 collision penalty on every step "
+          f"of the open floor)")
+    if not rewards or not all(lo <= r <= hi for r in rewards):
+        fail(f"compat trainer: mean reward per step {rewards}")
+
+    # the iteration's times on the resumed run's state
+    env = train_lib.build_env(cfg, dev)
+    net = train_lib.make_network(cfg, env)
+    ts = ppo.init_train_state(env, net, cfg,
+                              torch.Generator(device=dev).manual_seed(SEED))
+    ts = ckpt_lib.restore_checkpoint(latest, ts)
+    rollout, update = ppo.make_train_fns(env, cfg)
+    ts, _, _ = timed_iterations(rollout, update, ts, 1)
+    ts, r_ms, u_ms = timed_iterations(rollout, update, ts, TIMED_ITERS)
+    roll_ms, upd_ms = sum(r_ms) / TIMED_ITERS, sum(u_ms) / TIMED_ITERS
+    print(f"compat trainer iteration at B={B}, T={T} (mean of "
+          f"{TIMED_ITERS}): rollout_gae {roll_ms:.2f} ms ("
+          f"{roll_ms / T:.3f} ms per env step), update {upd_ms:.2f} ms; "
+          f"training {spi / (roll_ms + upd_ms) * 1e3:.0f} env-steps/s "
+          f"({card})")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"compat trainer phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def per_env_phase(card, dev, env):
+    """The per-env step on the card: PER_ENV_B umaze envs stepped one at a
+    time through ``AckermannEnv.step`` for PER_ENV_STEPS steps, each step
+    held against ``engine.staged_step`` (K3) on the same envs as a batch
+    from the same states (both make MuJoCo's warm-start pick), and the
+    same envs' per-env step on the CPU held against the card's."""
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    from mujoco_playground_tpu_torch.physics import engine
+    from mujoco_playground_tpu_torch.physics.state import State
+    t_phase = time.perf_counter()
+    cpu_env = make_ackermann_env("maze", "umaze", solver_iterations=4,
+                                 ls_iterations=3, device="cpu", seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    batch = env.reset(PER_ENV_B)
+    ones = [_index_tree(batch, i) for i in range(PER_ENV_B)]
+    cpu_ones = [_to_device(s, "cpu") for s in ones]
+    worst = dict(qpos=0.0, qvel=0.0, cpu_qpos=0.0, cpu_qvel=0.0, obs=0.0)
+    k3_launches = 0
+    step_s = 0.0
+    for _ in range(PER_ENV_STEPS):
+        actions = torch.rand((PER_ENV_B, 2), generator=gen, device=dev) * 2 - 1
+        prev = State(**{f.name: torch.stack(
+            [getattr(s.physics, f.name) for s in ones])
+            for f in dataclasses.fields(State)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ones = [env.step(s, a) for s, a in zip(ones, actions)]
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        cpu_ones = [cpu_env.step(s, a) for s, a in
+                    zip(cpu_ones, actions.cpu())]
+        reset_counts()
+        staged = engine.staged_step(env.model, prev.replace(
+            ctrl=torch.stack([s.physics.ctrl for s in ones])))
+        k3_launches += read_counts()["K3"]
+        for i, (s, c) in enumerate(zip(ones, cpu_ones)):
+            for name in ("qpos", "qvel"):
+                ref = getattr(staged, name)[i]
+                worst[name] = max(worst[name], float(
+                    (getattr(s.physics, name) - ref).abs().max()
+                    / (1 if name == "qpos" else 1 + ref.abs().max())))
+                worst[f"cpu_{name}"] = max(worst[f"cpu_{name}"], float(
+                    (getattr(c.physics, name) - getattr(s.physics,
+                                                        name).cpu())
+                    .abs().max()))
+            worst["obs"] = max(worst["obs"], float(
+                (c.obs - s.obs.cpu()).abs().max()))
+        # carry the card's states on, the CPU's from the card's
+        cpu_ones = [_to_device(s, "cpu") for s in ones]
+    print(f"per-env step on the card: {PER_ENV_B} envs x {PER_ENV_STEPS} "
+          f"steps, {step_s / (PER_ENV_B * PER_ENV_STEPS) * 1e3:.1f} ms per "
+          f"env step ({card}); against engine.staged_step on the same envs "
+          f"as a batch (K3 {k3_launches} launches): qpos {worst['qpos']:.3e}"
+          f" (tol {PER_ENV_TOL['qpos']:g}), qvel {worst['qvel']:.3e} of "
+          f"1 + each env's largest |qvel| (tol {PER_ENV_TOL['qvel']:g}); "
+          f"the CPU's per-env step against the card's: qpos "
+          f"{worst['cpu_qpos']:.3e}, qvel {worst['cpu_qvel']:.3e}, obs "
+          f"{worst['obs']:.3e} (tol {PER_ENV_TOL['cpu']:g})")
+    if k3_launches != PER_ENV_STEPS:
+        fail(f"per-env phase: K3 ran {k3_launches} times")
+    if not (worst["qpos"] <= PER_ENV_TOL["qpos"]
+            and worst["qvel"] <= PER_ENV_TOL["qvel"]
+            and max(worst["cpu_qpos"], worst["cpu_qvel"], worst["obs"])
+            <= PER_ENV_TOL["cpu"]):
+        fail(f"per-env phase: {worst}")
+    print(f"per-env phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _index_tree(tree, i):
+    """Env i of a batched dataclass tree, as one env's (unbatched)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i].clone()
+    return dataclasses.replace(tree, **{
+        f.name: _index_tree(getattr(tree, f.name), i)
+        for f in dataclasses.fields(tree)})
+
+
+def _to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return dataclasses.replace(tree, **{
+        f.name: _to_device(getattr(tree, f.name), device)
+        for f in dataclasses.fields(tree)})
+
+
 def solved_phase(card, dev):
     """The solved recipe's trainer through ``rl.train.main`` at 4096 envs,
     as written and with a random spawn heading, its launch counts, checks
@@ -1012,7 +1455,7 @@ def solved_phase(card, dev):
         # settle 3; one iteration; two evaluations (the loop's and main's)
         # of ep steps, each with one batched reset, as the init has
         want = {"K1": 3 + T + 2 * ep, "K1e": 0,
-                "K2": 3 + (T if extra else 0), "K3": 0}
+                "K2": 3 + (T if extra else 0), "K3": 0, "K2f": 0}
         print(f"solved trainer {name}: main() for one iteration, "
               f"{time.perf_counter() - t0:.1f} s, launches {got}; expected "
               f"{want} = settle 3 + {T} rollout steps + 2 evaluations of "
@@ -1065,7 +1508,7 @@ def solved_phase(card, dev):
             u_ms.append(ev[1].elapsed_time(ev[2]))
         got = read_counts()
         n = TIMED_ITERS * T
-        want = {"K1": n, "K1e": 0, "K2": n if extra else 0, "K3": 0}
+        want = {"K1": n, "K1e": 0, "K2": n if extra else 0, "K3": 0, "K2f": 0}
         roll_ms, upd_ms = sum(r_ms) / TIMED_ITERS, sum(u_ms) / TIMED_ITERS
         each = lambda ms: ", ".join(f"{x:.2f}" for x in ms)  # noqa: E731
         print(f"solved trainer {name} at B={B}, T={T}, hidden "
@@ -1092,7 +1535,7 @@ def solved_phase(card, dev):
             comp = env._compass_from(geo[..., 1:3], s.obs[:, HEADING_COL],
                                      goal_vec)
             torch.cat([s.obs[:, :79], comp], dim=-1)
-            env._geo_delta(s.physics, s.goal_cell, geo)
+            env._geo_delta(s.physics, s.physics, s.goal_cell, geo)
 
         def profiled(fn, reps):
             with profile(activities=[ProfilerActivity.CPU,
@@ -1186,7 +1629,7 @@ def solved_phase(card, dev):
                  "--num-envs", str(EVAL_EPISODES), "--eval-episodes",
                  str(EVAL_EPISODES), "--seed", "0"] + SOLVED_ENV + extra)
             judge(run, stats, ref["eval"], timed["s"], read_counts(),
-                  {"K1": 3 + EVAL_STEPS, "K1e": 0, "K2": 2, "K3": 0})
+                  {"K1": 3 + EVAL_STEPS, "K1e": 0, "K2": 2, "K3": 0, "K2f": 0})
     finally:
         train_lib.evaluate_agent = evaluate_cli
 
@@ -1199,7 +1642,7 @@ def solved_phase(card, dev):
     stats = timed_eval(env, lambda obs: held, num_episodes=EVAL_EPISODES)
     judge("random policy in the solved env (one uniform action per episode)",
           stats, ref, timed["s"], read_counts(),
-          {"K1": EVAL_STEPS, "K1e": 0, "K2": 1, "K3": 0})
+          {"K1": EVAL_STEPS, "K1e": 0, "K2": 1, "K3": 0, "K2f": 0})
     shutil.rmtree(work, ignore_errors=True)
     print(f"solved phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1295,7 +1738,7 @@ def offpolicy_phase(card, dev):
             got = read_counts()
             want = {"K1": settle["K1"] + 4 * n_iters + one_eval["K1"],
                     "K1e": 0, "K2": settle["K2"] + 1 + one_eval["K2"],
-                    "K3": 0}
+                    "K3": 0, "K2f": 0}
             print(f"offpolicy {algo} {label}: {time.perf_counter() - t0:.1f}"
                   f" s, launches {got}; expected {want} = settle "
                   f"{settle['K1']} + {n_iters} iterations x 4 collect steps"
@@ -1570,7 +2013,7 @@ def offpolicy_eval(card, dev, work):
             counts = read_counts()
             runs = 1 + NUDGES
             want = {"K1": 3 + runs * OFFPOLICY_EVAL_STEPS, "K1e": 0,
-                    "K2": 1 + runs, "K3": 0}
+                    "K2": 1 + runs, "K3": 0, "K2f": 0}
             n = OFFPOLICY_EVAL_EPISODES
             sd = math.sqrt(ref["success_rate"] * (1 - ref["success_rate"])
                            / n)
@@ -1732,6 +2175,22 @@ def main():
             check_k1(f"{label} step {step}", got, want, model, failures)
             q, v, ws = want[0], want[1], want[4]
 
+    # the plain physics step (K1 <0,0,0>, K1e <0,0,0,dr>: physics substeps
+    # and delayed obs) on the wall-contact states, 3 chained steps each,
+    # with the set_aside rule of the wall checks
+    for dr in (None, params):
+        label = f"{'e ' if dr is not None else ''}<0,0,0> wall B={B_CHECK}"
+        q, v, ws = rows(wall.qpos), rows(wall.qvel), rows(wall.qacc_warmstart)
+        for step in range(CHECK_STEPS):
+            ctrl = torch.rand((3, B_CHECK), generator=wgen, device=dev) * 2 - 1
+            args = (model, q, v, ctrl, ws, None, None, None, False)
+            got = k1.step_fused(*args, dr_params=dr)
+            want = k1.step_plain(*args, dr_params=dr)
+            torch.cuda.synchronize()
+            check_k1(f"{label} step {step}", got, want, model, failures,
+                     k1_witness(args, wgen, dr))
+            q, v, ws = want[0], want[1], want[4]
+
     # K3 at B_CHECK on the system the staged step assembles for compat-path
     # states next to walls, with a warm start
     cenv = make_ackermann_env("maze", "umaze", solver_iterations=4,
@@ -1878,6 +2337,10 @@ def main():
 
     profile_steps("path B", staged_step, STAGED_PROFILE, card)
 
+    # -- phases 3d-3g: the reference-compat knobs, the staged DR fallback
+    # and DR with heading noise (compat_paths)
+    paths = compat_paths(card, dev, env, cenv, random_actions, t0, t1)
+
     # -- phase 4: the kernels at the paths' shapes ---------------------------
     # K1 as the main path calls it (<with_env, with_fresh, !ws_compare>) on
     # the last main-path states, K2 on the reset frames it scanned, K1e on
@@ -1932,6 +2395,39 @@ def main():
                                                   warmstart=sys_ws)],
                  failures)
     del got_k3
+    # the plain physics step: K1 <0,0,0> on path R's last states (strict),
+    # K1e <0,0,0,dr> on path R under DR's with its parameters (set_aside);
+    # K2 with each env's floor on path C's last frames and floors
+    rph = paths["R"]["states"].physics
+    pargs = (model, rows(rph.qpos), rows(rph.qvel), ctrl,
+             rows(rph.qacc_warmstart), None, None, None, False)
+    got_p = k1.step_fused(*pargs)
+    k1p_err = check_k1(f"<0,0,0> B={B_MAIN}", got_p, k1.step_plain(*pargs),
+                       model, failures)
+    check_repeat("K1 <0,0,0>", got_p, k1.step_fused(*pargs), failures)
+    del got_p
+    rdph = paths["RD"]["states"].physics
+    pdparams = engine.dr_params(paths["RD"]["models"], model, B_MAIN)
+    pdargs = (model, rows(rdph.qpos), rows(rdph.qvel), ctrl,
+              rows(rdph.qacc_warmstart), None, None, None, False)
+    got_pe = k1.step_fused(*pdargs, dr_params=pdparams)
+    k1pe_err = check_k1(
+        f"e <0,0,0> B={B_MAIN}", got_pe,
+        k1.step_plain(*pdargs, dr_params=pdparams), model, failures,
+        k1_witness(pdargs, gen, pdparams))
+    check_repeat("K1e <0,0,0,dr>", got_pe,
+                 k1.step_fused(*pdargs, dr_params=pdparams), failures)
+    del got_pe
+    fph = paths["C"]["states"].physics
+    fxp, fxq = rows(fph.xpos), rows(fph.xquat)
+    floor = paths["C"]["models"].plane_z
+    got_k2f = k2.lidar(model, fxp, fxq, floor)
+    k2f_err = check_k2(f"per-env floor B={B_MAIN}", got_k2f,
+                       k2.lidar_plain(model, fxp, fxq, floor), failures,
+                       K2F_TOL)
+    check_repeat("K2 per-env floor", [got_k2f],
+                 [k2.lidar(model, fxp, fxq, floor)], failures)
+    del got_k2f
     if failures:
         fail(f"kernels disagree with their plain twins: {failures}")
     # how far the kernel and the float32 twin are from the float64 twin
@@ -1960,6 +2456,18 @@ def main():
     k3_ms, k3_dev_ms = cuda_ms(k3_call, 20), graph_ms(k3_call, 20)
     k3_plain_ms = cuda_ms(
         lambda: k3.newton_solve_plain(*sys_args, warmstart=sys_ws), 2)
+    k1p_call = functools.partial(k1.step_fused, *pargs)
+    k1p_ms, k1p_dev_ms = cuda_ms(k1p_call, 20), graph_ms(k1p_call, 20)
+    k1p_plain_ms = cuda_ms(lambda: k1.step_plain(*pargs), 2)
+    k1pe_call = functools.partial(k1.step_fused, *pdargs,
+                                  dr_params=pdparams)
+    k1pe_ms, k1pe_dev_ms = cuda_ms(k1pe_call, 20), graph_ms(k1pe_call, 20)
+    k1pe_plain_ms = cuda_ms(
+        lambda: k1.step_plain(*pdargs, dr_params=pdparams), 2)
+    k2f_call = functools.partial(k2.lidar, model, fxp, fxq, floor)
+    k2f_ms, k2f_dev_ms = cuda_ms(k2f_call, 50), graph_ms(k2f_call, 50)
+    k2f_plain_ms = cuda_ms(lambda: k2.lidar_plain(model, fxp, fxq, floor),
+                           3)
 
     nbox = model.num_scene_boxes
     k1_bytes = (model.nq + 2 * model.nv + model.nu + 7 + model.nq
@@ -1983,6 +2491,33 @@ def main():
     k3_flop = k3_ops(model.nv, jg, na, cenv.model.solver_iterations,
                      cenv.model.ls_iterations, True)
     k3_bound, k3_by = bound_ms(k3_env_bytes * B_MAIN, k3_flop * B_MAIN)
+    # the plain physics step moves qpos, qvel, ctrl and the warm start in
+    # and qpos, qvel, the frames and qacc out (K1e: and its parameters);
+    # K2 with a per-env floor reads 4 B more per env
+    k1p_bytes = (2 * model.nq + 4 * model.nv + model.nu
+                 + model.nbody * 7) * 4 * B_MAIN
+    slot_active_p = k1.contact_activity(model, pargs[1]).float().mean(
+        1).tolist()
+    k1p_flop = k1_ops(model, slot_active_p, fresh=False, env=False)
+    k1p_bound, k1p_by = bound_ms(k1p_bytes, k1p_flop * B_MAIN)
+    k1pe_bytes = k1p_bytes + pdparams.shape[0] * 4 * B_MAIN
+    slot_active_pe = k1.contact_activity(
+        model, pdargs[1], pdparams).float().mean(1).tolist()
+    k1pe_flop = k1_ops(model, slot_active_pe, fresh=False, env=False)
+    k1pe_bound, k1pe_by = bound_ms(k1pe_bytes, k1pe_flop * B_MAIN)
+    k2f_bound, k2f_by = bound_ms(
+        k2_bytes + 4 * B_MAIN, model.nsite * (72 + 27 * nbox) * B_MAIN)
+    print(f"K1 <0,0,0>: {k1p_ms:.4f} ms per call, {k1p_dev_ms:.4f} ms on "
+          f"the device (plain {k1p_plain_ms:.2f} ms, bound {k1p_bound:.5f} "
+          f"ms by {k1p_by}: {k1p_flop:.0f} operations per env with "
+          f"{sum(slot_active_p):.2f} active contact rows per env); K1e "
+          f"<0,0,0,dr>: {k1pe_ms:.4f} ms per call, {k1pe_dev_ms:.4f} ms on "
+          f"the device (plain {k1pe_plain_ms:.2f} ms, bound "
+          f"{k1pe_bound:.5f} ms by {k1pe_by}: {k1pe_flop:.0f} operations "
+          f"per env with {sum(slot_active_pe):.2f} active contact rows per "
+          f"env); K2 with a per-env floor: {k2f_ms:.4f} ms per call, "
+          f"{k2f_dev_ms:.4f} ms on the device (plain {k2f_plain_ms:.2f} ms, "
+          f"bound {k2f_bound:.5f} ms by {k2f_by}) at B={B_MAIN} ({card})")
     print(f"K1: {k1_ms:.4f} ms per call, {k1_dev_ms:.4f} ms on the device "
           f"(plain {k1_plain_ms:.2f} ms, bound "
           f"{k1_bound:.5f} ms by {k1_by}: {k1_flop:.0f} operations per env"
@@ -2007,11 +2542,17 @@ def main():
     trainer_phase(card, dev)
     print(f"trainer phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 5b: the reference-compat trainer ----------------------------
+    compat_trainer_phase(card, dev)
+
     # -- phase 6: the solved recipe and the solved policies ----------------
     solved_phase(card, dev)
 
     # -- phase 7: SAC and TD3, and the committed off-policy policies -------
     offpolicy_phase(card, dev)
+
+    # -- phase 8: the per-env step -----------------------------------------
+    per_env_phase(card, dev, env)
 
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",
@@ -2035,6 +2576,17 @@ def main():
               "mujoco_playground_tpu/ops/newton_pallas.py:366",
               launches_st["K3"], k3_err, k3_ms, k3_dev_ms, k3_plain_ms,
               k3_bound, k3_by),
+        entry("K1 plain physics step <0,0,0> (path R)", "step_kernel.cu",
+              step_src, paths["R"]["counts"]["K1"], k1p_err, k1p_ms,
+              k1p_dev_ms, k1p_plain_ms, k1p_bound, k1p_by),
+        entry("K1e plain physics step <0,0,0,dr> (path R under DR)",
+              "step_kernel_dr.cu", step_src, paths["RD"]["counts"]["K1e"],
+              k1pe_err, k1pe_ms, k1pe_dev_ms, k1pe_plain_ms, k1pe_bound,
+              k1pe_by),
+        entry("K2 lidar with a per-env floor (path C)", "lidar_kernel.cu",
+              "mujoco_playground_tpu/ops/lidar_pallas.py:114",
+              paths["C"]["counts"]["K2f"], k2f_err, k2f_ms, k2f_dev_ms,
+              k2f_plain_ms, k2f_bound, k2f_by),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel mujoco_playground_tpu/ops/lidar_pallas.py
 // (build_lidar_fn -> _lidar_kernel).  In: xpos (NBODY*3, B), xquat
-// (NBODY*4, B); out: (NSITE, B), float32, batch-last.
+// (NBODY*4, B) and, optionally, plane_z (B,): each env's floor height
+// (domain randomization) in place of the model's; out: (NSITE, B), float32,
+// batch-last.  A null plane_z selects the model's floor; the wrapper counts
+// the two uses apart.
 //
 // What bounds it on an H100: operations.  Per env it reads 56 floats and
 // writes 72 (512 B), but runs 72 beams x (plane + nbox slab tests), ~27
@@ -25,30 +28,33 @@
 
 KCONST LidarConst c_lidar;
 
-// Beam i of env b: reads column b of its body's rows of xpos/xquat, writes
-// out[i*B + b].
+// Beam i of env b: reads column b of its body's rows of xpos/xquat (and
+// plane_z[b] when given), writes out[i*B + b].
 HD void k2_beam(int i, long b, long B, const float* xpos, const float* xquat,
-                float* out) {
+                const float* plane_z, float* out) {
   int body = c_lidar.site_body[i];
   float bp[3], bq[4];
 #ifdef __CUDACC__
   for (int k = 0; k < 3; ++k) bp[k] = __ldg(xpos + (3 * body + k) * B + b);
   for (int k = 0; k < 4; ++k) bq[k] = __ldg(xquat + (4 * body + k) * B + b);
+  float pz = plane_z ? __ldg(plane_z + b) : c_lidar.plane_z;
 #else
   for (int k = 0; k < 3; ++k) bp[k] = xpos[(3 * body + k) * B + b];
   for (int k = 0; k < 4; ++k) bq[k] = xquat[(4 * body + k) * B + b];
+  float pz = plane_z ? plane_z[b] : c_lidar.plane_z;
 #endif
-  out[i * B + b] = lidar_site(c_lidar, i, bp, bq, c_lidar.plane_z);
+  out[i * B + b] = lidar_site(c_lidar, i, bp, bq, pz);
 }
 
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(K2_THREADS)
     k2_kernel(const float* __restrict__ xpos, const float* __restrict__ xquat,
-              float* __restrict__ out, int B) {
+              const float* __restrict__ plane_z, float* __restrict__ out,
+              int B) {
   long b = (long)blockIdx.x * K2_ENVS + threadIdx.x;
   int i = blockIdx.y * K2_BEAMS + threadIdx.y;
-  if (b < B && i < NSITE) k2_beam(i, b, B, xpos, xquat, out);
+  if (b < B && i < NSITE) k2_beam(i, b, B, xpos, xquat, plane_z, out);
 }
 
 extern "C" {
@@ -60,12 +66,14 @@ int k2_set_constants(const void* blob, size_t size) {
   return (int)cudaMemcpyToSymbol(c_lidar, blob, size);
 }
 
-int k2_launch(const float* xpos, const float* xquat, float* out, int B,
-              cudaStream_t stream) {
+// plane_z: (B,) floor heights, or null for the model's.
+int k2_launch(const float* xpos, const float* xquat, const float* plane_z,
+              float* out, int B, cudaStream_t stream) {
   if (B > 0)
     k2_kernel<<<dim3((B + K2_ENVS - 1) / K2_ENVS,
                      (NSITE + K2_BEAMS - 1) / K2_BEAMS),
-                dim3(K2_ENVS, K2_BEAMS), 0, stream>>>(xpos, xquat, out, B);
+                dim3(K2_ENVS, K2_BEAMS), 0, stream>>>(xpos, xquat, plane_z,
+                                                      out, B);
   return (int)cudaGetLastError();
 }
 
@@ -92,10 +100,10 @@ int k2_set_constants(const void* blob, size_t size) {
   return 0;
 }
 
-int k2_launch(const float* xpos, const float* xquat, float* out, int B,
-              void*) {
+int k2_launch(const float* xpos, const float* xquat, const float* plane_z,
+              float* out, int B, void*) {
   for (int i = 0; i < NSITE; ++i)
-    for (int b = 0; b < B; ++b) k2_beam(i, b, B, xpos, xquat, out);
+    for (int b = 0; b < B; ++b) k2_beam(i, b, B, xpos, xquat, plane_z, out);
   return 0;
 }
 

@@ -26,8 +26,10 @@ int k1e_set_constants(const void* blob, size_t size) {
 
 // Launches K1e on the stream (the host build runs it in place).  Returns
 // the CUDA error of the launch, 0 on success.  Compiled flag sets:
-// <with_env, with_fresh, ws_compare> = <1, 1, 0> (the auto-reset step) and
-// <1, 0, 0> (the env step); any other set returns cudaErrorInvalidValue.
+// <with_env, with_fresh, ws_compare> = <1, 1, 0> (the auto-reset step),
+// <1, 0, 0> (the env step) and <0, 0, 0> (the physics step alone: physics
+// substeps and delayed observations); any other set returns
+// cudaErrorInvalidValue.
 int k1e_launch(const float* qpos, const float* qvel, const float* ctrl,
                const float* ws, const float* env_in, const float* dr,
                float* qpos_out, float* qvel_out, float* xpos_out,
@@ -40,20 +42,23 @@ int k1e_launch(const float* qpos, const float* qvel, const float* ctrl,
               qacc_out, slab,     B,         flags,    coll_th,
               goal_th,  prog_scale, coll_pen};
   int flags3 = (with_env ? 4 : 0) | (with_fresh ? 2 : 0) | (ws_compare ? 1 : 0);
-  if ((flags3 != 6 && flags3 != 4) || dr == nullptr) return K1_BAD_FLAGS;
+  if ((flags3 != 6 && flags3 != 4 && flags3 != 0) || dr == nullptr)
+    return K1_BAD_FLAGS;
   if (B > 0) {
-    int err = flags3 == 6 ? k1_run<true, true, false, true>(A, stream)
-                          : k1_run<true, false, false, true>(A, stream);
+    int err = flags3 == 6   ? k1_run<true, true, false, true>(A, stream)
+              : flags3 == 4 ? k1_run<true, false, false, true>(A, stream)
+                            : k1_run<false, false, false, true>(A, stream);
     if (err != 0) return err;
   }
   return K1_LAUNCH_ERROR();
 }
 
-// As k1_occupancy, for K1e's two flag sets.
+// As k1_occupancy, for K1e's three flag sets.
 int k1e_occupancy(int with_env, int with_fresh, int ws_compare, int* out) {
   int flags3 = (with_env ? 4 : 0) | (with_fresh ? 2 : 0) | (ws_compare ? 1 : 0);
   if (flags3 == 6) return k1_occupancy_t<true, true, false, true>(out);
   if (flags3 == 4) return k1_occupancy_t<true, false, false, true>(out);
+  if (flags3 == 0) return k1_occupancy_t<false, false, false, true>(out);
   return K1_BAD_FLAGS;
 }
 

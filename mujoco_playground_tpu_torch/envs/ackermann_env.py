@@ -9,18 +9,27 @@ solved-task knobs: geodesic progress shaping (``geodesic_reward_scale``),
 the goal compass (``goal_compass``, two more observation columns) and a
 random spawn heading (``spawn_heading_noise``).
 
-Everything is batched: the leaves of an :class:`EnvState` carry a leading
-env axis.  One env step is one launch of kernel K1 (``ops/step.py``) with
-the lidar, observation, reward and the auto-reset spawn scan fused in (K1e
+The batched API's :class:`EnvState` leaves carry a leading env axis.  One
+env step is one launch of kernel K1 (``ops/step.py``) with the lidar,
+observation, reward and the auto-reset spawn scan fused in (K1e
 under domain randomization, ``envs/domain_randomization.py``); the batched
 reset takes its observation from kernel K2 (``ops/lidar.py``).  With a
 compat contact manifold (``reference_flat_manifold`` /
 ``reference_wheel_patch``) the step is the staged step through kernel K3,
 and the observation comes from K2.  Under ``spawn_heading_noise`` the
 auto-reset observes the merged state through K2 (K1's fused spawn scan
-bakes the template's heading).  The geodesic lookups of the shaping and the
-compass are plain torch ops beside the kernels (``envs/geodesic.py``).
+bakes the template's heading).  The reference-compat knobs:
+``physics_substeps`` runs K1 without the env (``<0,0,0>``) for every
+substep but the last; ``reference_delayed_obs`` observes the pre-step
+physics through K2, and its auto-reset observes a whole fresh batch.
+Under domain randomization off the fused step, the observation takes each
+env's own model (``_scan_batch``).  The geodesic lookups of the shaping and
+the compass are plain torch ops beside the kernels (``envs/geodesic.py``).
 Reset sampling draws from the env's ``torch.Generator``.
+
+``step`` and ``step_autoreset`` step one env (unbatched leaves), as the JAX
+package's per-env functions do: the per-env physics step and raycast in
+plain PyTorch on the env's device.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ from mujoco_playground_tpu_torch.core.odometry import OdometryRef
 from mujoco_playground_tpu_torch.device import resolve_device
 from mujoco_playground_tpu_torch.envs import geodesic
 from mujoco_playground_tpu_torch.ops import lidar as k2
-from mujoco_playground_tpu_torch.physics import engine
+from mujoco_playground_tpu_torch.physics import engine, raycast, sensors
 from mujoco_playground_tpu_torch.physics.mathutil import quat_mul, quat_to_yaw
 from mujoco_playground_tpu_torch.physics.model import Model, make_model
 from mujoco_playground_tpu_torch.physics.state import State, make_state
@@ -73,23 +82,6 @@ class EnvConfig:
     goal_compass: bool = False
     spawn_heading_noise: float = 0.0
     collision_penalty: float = -50.0
-
-
-# the ROADMAP.md item that ports the configurations this port does not run
-# yet
-_COMPAT_ITEM = "Queue 1, item 1 'Reference-compat knobs'"
-_STAGED_DR_ITEM = "Queue 1, item 2 'Staged DR fallback'"
-
-
-def _check_ported(config: EnvConfig):
-    if config.reference_delayed_obs:
-        raise NotImplementedError(
-            f"EnvConfig.reference_delayed_obs is not ported yet (ROADMAP.md "
-            f"{_COMPAT_ITEM})")
-    if config.physics_substeps != 1:
-        raise NotImplementedError(
-            f"physics_substeps > 1 is not ported yet (ROADMAP.md "
-            f"{_COMPAT_ITEM})")
 
 
 @dataclasses.dataclass
@@ -181,7 +173,6 @@ class AckermannEnv:
                  solver_iterations: int = 8,
                  ls_iterations: int = 6,
                  device=None, seed: int = 0):
-        _check_ported(config)
         self.config = config
         self.device = resolve_device(device)
         if maze_id is not None:
@@ -359,16 +350,20 @@ class AckermannEnv:
         return self._compass_from(None if geo is None else geo[..., 1:3],
                                   heading, goal_vec)
 
-    def _geo_delta(self, prev_phys: State, goal_cell, geo_new):
+    def _geo_delta(self, prev_phys: State, new_phys: State, goal_cell,
+                   geo_new=None):
         """The geodesic shaping term, ``scale * (phi(prev) - phi(new))``
-        from the pre-step chassis xy and the post-step packed sample
-        ``geo_new`` (0.0 when the knob is off).  No carried state: it
-        telescopes within an episode, and the done step shapes against its
-        own episode's goal cell."""
+        from the pre- and post-step chassis xy (0.0 when the knob is off).
+        ``geo_new``: the post-step packed sample, where the caller has it
+        (the compass shares it).  No carried state: it telescopes within an
+        episode, and the done step shapes against its own episode's goal
+        cell.  One env or a batch."""
         scale = self.config.geodesic_reward_scale
         if self._geo_pack is None or not scale:
             return 0.0
-        phi_p = self._geo_eval(goal_cell, prev_phys.xpos[:, 1, :2])[..., 0]
+        phi_p = self._geo_eval(goal_cell, prev_phys.xpos[..., 1, :2])[..., 0]
+        if geo_new is None:
+            geo_new = self._geo_eval(goal_cell, new_phys.xpos[..., 1, :2])
         return (scale * (phi_p - geo_new[..., 0])).to(self.dtype)
 
     # ------------------------------------------------------------------- step
@@ -388,15 +383,83 @@ class AckermannEnv:
         xy)."""
         return self._fresh_statics_cache
 
+    def step(self, state: EnvState, action, model=None) -> EnvState:
+        """One env step of one env (unbatched leaves): the per-env physics
+        step (``engine.step``, plain PyTorch; it makes MuJoCo's warm-start
+        pick, as the staged step does) ``physics_substeps`` times, then the
+        observation, reward and termination from the per-env scan
+        (``_observe``).  ``model``: this env's own model (domain
+        randomization)."""
+        cfg = self.config
+        model = self.model if model is None else model
+        action = torch.clamp(torch.as_tensor(action, dtype=self.dtype,
+                                             device=self.device), -1.0, 1.0)
+        ctrl = bicycle_cmd_vel_to_controls(
+            action[0] * cfg.max_linear_velocity,
+            action[1] * cfg.max_angular_velocity)
+        physics = state.physics.replace(ctrl=ctrl)
+        for _ in range(cfg.physics_substeps):
+            physics = engine.step(model, physics)
+        obs_src = state.physics if cfg.reference_delayed_obs else physics
+        geo_obs = self._geo_eval(state.goal_cell, obs_src.xpos[..., 1, :2])
+        obs, metrics = self._observe(obs_src, state.odom_ref, state.goal,
+                                     model=model, geo_vec=geo_obs)
+        return self._outcome(
+            state, physics, obs, metrics,
+            self._geo_delta(state.physics, physics, state.goal_cell,
+                            None if cfg.reference_delayed_obs else geo_obs))
+
+    def step_autoreset(self, state: EnvState, action,
+                       fresh: Optional[EnvState] = None) -> EnvState:
+        """``step`` with the branchless auto-reset of one env: where the
+        step ends the episode, the continuation is ``fresh`` (one env's
+        ``reset_core`` state, observed here; default: drawn from the env's
+        generator), while the step's outcome is kept."""
+        st = self.step(state, action)
+        if fresh is None:
+            fresh = _unbatch1(self.reset_core(1))
+        obs, metrics = self._observe(
+            fresh.physics, fresh.odom_ref, fresh.goal,
+            geo_vec=self._geo_eval(fresh.goal_cell,
+                                   fresh.physics.xpos[..., 1, :2]))
+        fresh = fresh.replace(obs=obs, final_obs=obs, **metrics)
+        merged = _map2(lambda f, s: select_done(st.done, f, s), fresh, st)
+        return merged.replace(**_outcome_fields(st))
+
+    def _outcome(self, states, physics, obs, metrics, geo_delta):
+        """The stepped state from an observation of it: reward,
+        termination, truncation, and the shaping potential."""
+        cfg = self.config
+        goal_distance = metrics["goal_distance"]
+        collision = metrics["collision"]
+        terminated = goal_distance < cfg.goal_distance_threshold
+        reward = reward_terms(cfg, goal_distance, collision, terminated,
+                              states.prev_goal_distance).to(self.dtype)
+        steps = states.steps + 1
+        truncated = (steps >= cfg.max_episode_steps) & ~terminated
+        return states.replace(
+            physics=physics, obs=obs, final_obs=obs,
+            reward=reward + geo_delta, steps=steps, terminated=terminated,
+            truncated=truncated, done=terminated | truncated,
+            goal_distance=goal_distance, collision=collision,
+            min_lidar=metrics["min_lidar"], prev_goal_distance=goal_distance)
+
     def step_batch(self, states: EnvState, actions, models=None,
                    base_model=None, _fresh_xy=None):
         """One env step of the batch.  ``_fresh_xy`` (from
         ``step_autoreset_batch``): each env's fresh spawn xy; the return
         is then ``(EnvState, fresh_lidar)`` with the spawn scan fused into
-        the same launch (``fresh_lidar`` is None on the staged step, which
-        observes through K2 instead).  ``models``/``base_model``: domain
-        randomization, the randomized leaves with a leading env axis and
-        the unbatched base model (``engine.step_batch``)."""
+        the same launch (``fresh_lidar`` is None off the fused step).
+        ``models``/``base_model``: domain randomization, the randomized
+        leaves with a leading env axis and the unbatched base model
+        (``engine.step_batch``).
+
+        ``physics_substeps`` steps run K1 without the env (``<0,0,0>``)
+        but the last, which fuses the observation unless
+        ``reference_delayed_obs`` observes the pre-step physics instead.
+        Off the fused step (delayed obs, the staged step), the observation
+        comes from ``_observe_batch``: kernel K2, with each env's floor
+        height under domain randomization."""
         cfg = self.config
         model = self.model if models is None else models
         actions = torch.clamp(actions.to(self.dtype), -1.0, 1.0)
@@ -404,19 +467,35 @@ class AckermannEnv:
             actions[..., 0] * cfg.max_linear_velocity,
             actions[..., 1] * cfg.max_angular_velocity)
         physics = states.physics.replace(ctrl=ctrl)
-        if engine.is_compat(self.model):
-            return self._step_staged(states, physics, model, base_model,
-                                     _fresh_xy)
-        cols = [states.odom_ref.position[:, :2], states.goal,
-                states.prev_goal_distance[:, None]]
-        if _fresh_xy is not None:
-            cols.append(_fresh_xy)
-        env_in = torch.cat(cols, dim=-1).to(self.dtype)
-        physics, slab = engine.step_batch(
-            model, physics, base_model=base_model,
-            with_env=self._env_statics(), env_in=env_in,
-            with_fresh=(self._fresh_statics() if _fresh_xy is not None
-                        else None))
+        slab = None
+        for i in range(cfg.physics_substeps):
+            if i == cfg.physics_substeps - 1 and not cfg.reference_delayed_obs:
+                cols = [states.odom_ref.position[:, :2], states.goal,
+                        states.prev_goal_distance[:, None]]
+                if _fresh_xy is not None:
+                    cols.append(_fresh_xy)
+                env_in = torch.cat(cols, dim=-1).to(self.dtype)
+                physics, slab = engine.step_batch(
+                    model, physics, base_model=base_model,
+                    with_env=self._env_statics(), env_in=env_in,
+                    with_fresh=(self._fresh_statics()
+                                if _fresh_xy is not None else None))
+            else:
+                physics = engine.step_batch(model, physics,
+                                            base_model=base_model)
+        if slab is None:
+            obs_src = states.physics if cfg.reference_delayed_obs else physics
+            geo_obs = self._geo_eval(states.goal_cell,
+                                     obs_src.xpos[:, 1, :2])
+            obs, metrics = self._observe_batch(
+                obs_src, states.odom_ref, states.goal, geo_vec=geo_obs,
+                models=models, base_model=base_model)
+            new = self._outcome(
+                states, physics, obs, metrics,
+                self._geo_delta(states.physics, physics, states.goal_cell,
+                                None if cfg.reference_delayed_obs
+                                else geo_obs))
+            return (new, None) if _fresh_xy is not None else new
         ns = self.model.nsite
         obs = slab[:, :ns + 7]
         # the compass and the shaping ride outside the kernel, on one
@@ -429,7 +508,7 @@ class AckermannEnv:
                 None if geo_new is None else geo_new[..., 1:3],
                 slab[:, ns + 2], goal_vec)], dim=-1)
         reward = slab[:, ns + 7] + self._geo_delta(
-            states.physics, states.goal_cell, geo_new)
+            states.physics, physics, states.goal_cell, geo_new)
         terminated = slab[:, ns + 11] > 0.5
         steps = states.steps + 1
         truncated = (steps >= cfg.max_episode_steps) & ~terminated
@@ -444,31 +523,6 @@ class AckermannEnv:
             return new, slab[:, ns + 12:]
         return new
 
-    def _step_staged(self, states, physics, model, base_model, fresh_xy):
-        """The env step without the fused step: the staged physics step,
-        then the observation, reward and termination through K2."""
-        cfg = self.config
-        physics = engine.step_batch(model, physics, base_model=base_model)
-        geo_new = self._geo_eval(states.goal_cell, physics.xpos[:, 1, :2])
-        obs, metrics = self._observe_batch(physics, states.odom_ref,
-                                           states.goal, geo_vec=geo_new)
-        goal_distance = metrics["goal_distance"]
-        collision = metrics["collision"]
-        terminated = goal_distance < cfg.goal_distance_threshold
-        reward = reward_terms(cfg, goal_distance, collision, terminated,
-                              states.prev_goal_distance).to(self.dtype)
-        reward = reward + self._geo_delta(states.physics, states.goal_cell,
-                                          geo_new)
-        steps = states.steps + 1
-        truncated = (steps >= cfg.max_episode_steps) & ~terminated
-        new = states.replace(
-            physics=physics, obs=obs, final_obs=obs, reward=reward,
-            steps=steps, terminated=terminated, truncated=truncated,
-            done=terminated | truncated, goal_distance=goal_distance,
-            collision=collision, min_lidar=metrics["min_lidar"],
-            prev_goal_distance=goal_distance)
-        return (new, None) if fresh_xy is not None else new
-
     def step_autoreset_batch(self, states: EnvState, actions,
                              fresh: Optional[EnvState] = None, models=None,
                              base_model=None) -> EnvState:
@@ -480,38 +534,44 @@ class AckermannEnv:
         ``fresh`` (a ``reset_core`` batch) replaces the sampling from the
         env's generator.  The fresh observation needs only the lidar at the
         spawn pose (odometry is zero and the heading is the template's),
-        which K1 scans in the same launch as the step; the staged step, and
-        any step under ``spawn_heading_noise`` (K1's spawn scan bakes the
-        template's heading), observe the merged state through K2 instead.
+        which K1 scans in the same launch as the step.  Off the fused step,
+        and under ``spawn_heading_noise`` (K1's spawn scan bakes the
+        template's heading), the merged state is observed through K2
+        instead, with each env's own model under domain randomization.
+        Under ``reference_delayed_obs`` the step observes the pre-step
+        physics, so a reset env's continuation is observed apart: the
+        whole fresh batch through K2 with the base model, as the JAX
+        package's per-env reset does, then selected by ``done``.
         ``models``/``base_model``: domain randomization, as in
         :meth:`step_batch` (resets use the base model)."""
         B = states.steps.shape[0]
+        cfg = self.config
+        if cfg.reference_delayed_obs:
+            st = self.step_batch(states, actions, models=models,
+                                 base_model=base_model)
+            fresh = self.reset(core=fresh if fresh is not None
+                               else self.reset_core(B))
+            merged = _map2(lambda f, s: select_done(st.done, f, s), fresh, st)
+            return merged.replace(**_outcome_fields(st))
         if fresh is None:
             fresh = self.reset_core(B)
-        if self.config.spawn_heading_noise:
-            if models is not None:
-                # the merged state's observation needs each env's own model
-                # (a randomized plane_z), which K2 does not take
-                raise NotImplementedError(
-                    f"domain randomization with spawn_heading_noise needs "
-                    f"the staged DR fallback's per-env observation, which "
-                    f"is not ported yet (ROADMAP.md {_STAGED_DR_ITEM})")
-            st, fresh_lidar = self.step_batch(states, actions), None
+        if cfg.spawn_heading_noise:
+            st = self.step_batch(states, actions, models=models,
+                                 base_model=base_model)
+            fresh_lidar = None
         else:
             st, fresh_lidar = self.step_batch(
                 states, actions, models=models, base_model=base_model,
                 _fresh_xy=fresh.physics.xpos[:, 1, :2])
         done = st.done
         merged = _map2(lambda f, s: select_done(done, f, s), fresh, st)
-        keep = dict(reward=st.reward, terminated=st.terminated,
-                    truncated=st.truncated, done=st.done,
-                    final_obs=st.final_obs, goal_distance=st.goal_distance,
-                    collision=st.collision, min_lidar=st.min_lidar)
+        keep = _outcome_fields(st)
         if fresh_lidar is None:
             obs, _ = self._observe_batch(
                 merged.physics, merged.odom_ref, merged.goal,
                 geo_vec=self._geo_eval(merged.goal_cell,
-                                       merged.physics.xpos[:, 1, :2]))
+                                       merged.physics.xpos[:, 1, :2]),
+                models=models, base_model=base_model)
             return merged.replace(obs=obs, **keep)
         g = fresh.goal
         heading0 = torch.full((B,), self._heading0, dtype=self.dtype,
@@ -522,7 +582,7 @@ class AckermannEnv:
                 torch.zeros((B, 2), dtype=self.dtype, device=self.device),
                 heading0[:, None], g, fresh.prev_goal_distance[:, None],
                 ang[:, None]]
-        if self.config.goal_compass:
+        if cfg.goal_compass:
             cols.append(self._compass(fresh.physics.xpos[:, 1, :2], heading0,
                                       fresh.goal_cell, g))
         fresh_obs = torch.cat(cols, dim=-1)
@@ -530,26 +590,59 @@ class AckermannEnv:
             obs=torch.where(done[:, None], fresh_obs, st.obs), **keep)
 
     # ------------------------------------------------------------------- obs
+    def _scan_batch(self, physics: State, models=None, base_model=None):
+        """The lidar of a batch, (B, nsite).  The names of the randomized
+        leaves pick the route: with no randomized scan field, or only the
+        floor height (``plane_z``, the default randomization), kernel K2
+        (with each env's floor); with any other randomized scan field
+        (``raycast.SCAN_FIELDS``: a site frame, a scene box, the plane's
+        extent or the cutoff), the plain raycast batched over each env's
+        own leaves, as the JAX package scans under every randomization."""
+        leaves = ({} if base_model is None
+                  else engine.batched_field_dict(models, base_model))
+        if any(n in leaves for n in raycast.SCAN_FIELDS if n != "plane_z"):
+            return raycast.lidar(models, physics.xpos, physics.xquat)
+        return k2.lidar(self.model, _rows(physics.xpos),
+                        _rows(physics.xquat), leaves.get("plane_z")).T
+
     def _observe_batch(self, physics: State, ref: OdometryRef, goal,
-                       geo_vec=None):
-        """Observation and metrics of a batch, with the lidar from K2;
-        ``geo_vec`` (``_geo_eval`` at the chassis xy) feeds the compass."""
+                       geo_vec=None, models=None, base_model=None):
+        """Observation and metrics of a batch, the lidar from
+        ``_scan_batch``; ``geo_vec`` (``_geo_eval`` at the chassis xy)
+        feeds the compass."""
+        return self._obs_metrics(self._scan_batch(physics, models,
+                                                  base_model),
+                                 physics, ref, goal, geo_vec)
+
+    def _observe(self, physics: State, ref: OdometryRef, goal, model=None,
+                 geo_vec=None):
+        """Observation and metrics of one env, the lidar from the per-env
+        raycast (``sensors.lidar_scan``) with ``model`` (default: the
+        env's)."""
+        model = self.model if model is None else model
+        return self._obs_metrics(sensors.lidar_scan(model, physics), physics,
+                                 ref, goal, geo_vec)
+
+    def _obs_metrics(self, lidar, physics: State, ref: OdometryRef, goal,
+                     geo_vec):
+        """The observation [lidar, x, y, heading, dx, dy, dist, angle(,
+        compass)] and the metrics, one env or a batch."""
         cfg = self.config
-        lidar = k2.lidar(self.model, _rows(physics.xpos),
-                         _rows(physics.xquat)).T
         if cfg.reference_lidar_aliasing:
-            lidar = torch.cat([lidar[:, 71:72].expand(-1, 10),
-                               lidar[:, 10:]], dim=-1)
-        pos_diff = physics.xpos[:, 1] - ref.position
-        heading = quat_to_yaw(physics.xquat[:, 1])
-        goal_vec = goal - pos_diff[:, :2]
+            lidar = torch.cat([lidar[..., 71:72].expand(
+                lidar.shape[:-1] + (10,)), lidar[..., 10:]], dim=-1)
+        pos_diff = physics.xpos[..., 1, :] - ref.position
+        heading = quat_to_yaw(physics.xquat[..., 1, :])
+        goal_vec = goal - pos_diff[..., :2]
         goal_distance = torch.linalg.norm(goal_vec, dim=-1)
-        goal_angle = torch.atan2(goal_vec[:, 1], goal_vec[:, 0]) - heading
+        goal_angle = (torch.atan2(goal_vec[..., 1], goal_vec[..., 0])
+                      - heading)
         goal_angle = torch.atan2(torch.sin(goal_angle), torch.cos(goal_angle))
         cols = [lidar,
-                torch.stack([pos_diff[:, 0], pos_diff[:, 1], heading], dim=-1),
-                torch.stack([goal_vec[:, 0], goal_vec[:, 1], goal_distance,
-                             goal_angle], dim=-1)]
+                torch.stack([pos_diff[..., 0], pos_diff[..., 1], heading],
+                            dim=-1),
+                torch.stack([goal_vec[..., 0], goal_vec[..., 1],
+                             goal_distance, goal_angle], dim=-1)]
         if cfg.goal_compass:
             cols.append(self._compass_from(
                 None if geo_vec is None else geo_vec[..., 1:3], heading,
@@ -562,6 +655,15 @@ class AckermannEnv:
         return obs, dict(goal_distance=goal_distance,
                          collision=min_lidar < cfg.collision_threshold,
                          min_lidar=min_lidar)
+
+
+def _outcome_fields(st: EnvState) -> dict:
+    """The step's outcome, which an auto-reset keeps over the fresh
+    state."""
+    return dict(reward=st.reward, terminated=st.terminated,
+                truncated=st.truncated, done=st.done,
+                final_obs=st.final_obs, goal_distance=st.goal_distance,
+                collision=st.collision, min_lidar=st.min_lidar)
 
 
 def _batch1(s: State) -> State:

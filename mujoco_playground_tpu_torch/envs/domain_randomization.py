@@ -3,7 +3,9 @@ port of the JAX package's ``envs/domain_randomization.py``).
 
 Selected leaves of the :class:`Model` get a leading env axis; the env step
 hands the randomized model and the base model to ``engine.step_batch``,
-which packs the nine per-env scalars for kernel K1e.  Randomized quantities
+which packs the nine per-env scalars for kernel K1e, or, for any other
+randomized leaf or over a compat manifold, takes the staged DR fallback
+with each env's own leaves.  Randomized quantities
 (multiplicative log-uniform scales unless noted): wheel friction, body
 masses with their rotational inertias, joint damping, friction loss and
 armature, actuator gain with its bias terms, and the floor height
@@ -112,8 +114,11 @@ class DomainRandomizedEnv:
 
     def step_autoreset_batch(self, states: EnvState, actions,
                              fresh: Optional[EnvState] = None) -> EnvState:
-        """One step with auto-reset, through K1e with the per-env floor
-        height in the fused observation and spawn scans."""
+        """One step with auto-reset: through K1e with the per-env floor
+        height in the fused observation and spawn scans, or, off the fused
+        step (another randomized leaf, a compat manifold, the
+        reference-compat knobs, heading noise), the observation through K2
+        with each env's floor."""
         return self.env.step_autoreset_batch(states, actions, fresh=fresh,
                                              models=self.models,
                                              base_model=self.env.model)

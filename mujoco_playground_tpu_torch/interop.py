@@ -43,8 +43,9 @@ def model_from_arrays(leaves: dict, device, dtype=torch.float32) -> Model:
 
 def randomized_model_from_arrays(base: Model, leaves: dict) -> Model:
     """The port's randomized ``Model``: ``base`` with the leaves a JAX
-    ``randomize_model`` result carries with a leading env axis, as numpy
-    by name (the other fields stay the base model's)."""
+    randomized model carries with a leading env axis, as numpy by name
+    (any array field, not only K1e's nine; the other fields stay the base
+    model's)."""
     return dataclasses.replace(base, **{
         name: torch.tensor(np.asarray(v), dtype=base.dtype,
                            device=base.device)
@@ -52,8 +53,9 @@ def randomized_model_from_arrays(base: Model, leaves: dict) -> Model:
 
 
 def env_state_from_arrays(d: dict, device) -> EnvState:
-    """A port ``EnvState`` batch from numpy leaves keyed by
-    ``ENV_STATE_FIELDS`` (a JAX ``rng`` leaf, if present, is ignored)."""
+    """A port ``EnvState`` from numpy leaves keyed by ``ENV_STATE_FIELDS``:
+    a batch's, or one env's (the per-env API's unbatched state).  A JAX
+    ``rng`` leaf, if present, is ignored."""
     def t(name):
         a = np.asarray(d[name])
         if name in _INT_FIELDS:

@@ -9,7 +9,8 @@ cutoff.  Layout is batch-last: xpos (nbody*3, B), xquat (nbody*4, B) ->
 
 ``lidar()`` dispatches on the tensors' device: CPU tensors take the plain
 twin ``lidar_plain``; CUDA tensors launch ``csrc/lidar_kernel.cu`` or
-raise.
+raise.  Both take an optional ``(B,)`` ``plane_z``, each env's floor height
+under domain randomization, in place of the model's.
 """
 from __future__ import annotations
 
@@ -106,10 +107,13 @@ def lidar_rows(site_body, site_pos, site_quat, boxes_lo, boxes_hi,
     return rows
 
 
-def lidar_plain(model, xpos, xquat):
+def lidar_plain(model, xpos, xquat, plane_z=None):
     """Plain twin of K2: xpos (nbody*3, B), xquat (nbody*4, B) ->
-    (nsite, B)."""
+    (nsite, B); ``plane_z`` (B,): each env's floor height in place of the
+    model's."""
     statics = lidar_statics(model)
+    if plane_z is not None:
+        statics = statics[:5] + (plane_z,) + statics[6:]
     bodies = sorted(set(statics[0]))
     bp = {b: [xpos[3 * b + k] for k in range(3)] for b in bodies}
     bq = {b: [xquat[4 * b + k] for k in range(4)] for b in bodies}
@@ -177,14 +181,17 @@ def check_rows(name, t, rows, B, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch_k2(lib, model, xpos, xquat, stream):
+def launch_k2(lib, model, xpos, xquat, stream, plane_z=None):
     """Run K2 from the loaded library ``lib`` on ``stream``: checks the
     inputs, allocates the output, uploads the model's constants and raises
-    if the launch fails.  The CUDA build takes device pointers and a CUDA
+    if the launch fails.  ``plane_z`` (B,): each env's floor height in
+    place of the model's.  The CUDA build takes device pointers and a CUDA
     stream; the host build of the same source (tests) CPU pointers."""
     B = xpos.shape[-1]
     check_rows("xpos", xpos, model.nbody * 3, B, xpos.device)
     check_rows("xquat", xquat, model.nbody * 4, B, xpos.device)
+    if plane_z is not None:
+        check_rows("plane_z", plane_z[None], 1, B, xpos.device)
     if model.nbody != _DIMS["NBODY"]:
         raise ValueError(f"lidar kernel is compiled for {_DIMS['NBODY']} "
                          f"bodies, the model has {model.nbody}")
@@ -194,27 +201,36 @@ def launch_k2(lib, model, xpos, xquat, stream):
     out = torch.empty((NSITE, B), dtype=torch.float32, device=xpos.device)
     build.upload_constants(lib, "k2", blob)
     fn = lib.k2_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(xpos.data_ptr(), xquat.data_ptr(), out.data_ptr(), B, stream)
+    err = fn(xpos.data_ptr(), xquat.data_ptr(),
+             None if plane_z is None else plane_z.data_ptr(), out.data_ptr(),
+             B, stream)
     if err != 0:
         raise RuntimeError(f"lidar kernel launch failed: CUDA error {err}")
     return out
 
 
-def lidar(model, xpos, xquat):
+def lidar(model, xpos, xquat, plane_z=None):
     """K2: the standalone scan, xpos (nbody*3, B), xquat (nbody*4, B) ->
-    (nsite, B).  CPU tensors take the plain twin; CUDA tensors launch
-    ``csrc/lidar_kernel.cu``."""
+    (nsite, B); ``plane_z`` (B,): each env's floor height in place of the
+    model's.  CPU tensors take the plain twin; CUDA tensors launch
+    ``csrc/lidar_kernel.cu``.  ``launches`` counts the launches with the
+    model's floor, ``launches_floor`` those with a per-env floor."""
     if xpos.device.type == "cpu":
-        return lidar_plain(model, xpos, xquat)
+        return lidar_plain(model, xpos, xquat, plane_z)
     if xpos.device.type != "cuda":
         raise ValueError(f"lidar: unsupported device {xpos.device}")
     with torch.cuda.device(xpos.device):
         out = launch_k2(build.load("lidar_kernel.cu"), model, xpos, xquat,
-                        torch.cuda.current_stream(xpos.device).cuda_stream)
-    lidar.launches += 1
+                        torch.cuda.current_stream(xpos.device).cuda_stream,
+                        plane_z)
+    if plane_z is None:
+        lidar.launches += 1
+    else:
+        lidar.launches_floor += 1
     return out
 
 
 lidar.launches = 0
+lidar.launches_floor = 0

@@ -23,6 +23,7 @@ tensors take the twin, CUDA tensors launch ``csrc/step_kernel.cu`` (K1e:
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -1249,12 +1250,22 @@ def _env_rows(model, fresh):
 K1_VARIANTS = {(True, True, False, False): "step_autoreset_batch",
                (True, False, False, False): "AckermannEnv.step_batch",
                (False, False, True, False): "the settle template",
+               (False, False, False, False):
+                   "engine.step_batch without the env: every physics "
+                   "substep but the last, and the step under delayed obs",
                (True, True, False, True):
                    "DomainRandomizedEnv.step_autoreset_batch",
-               (True, False, False, True): "DomainRandomizedEnv.step_batch"}
+               (True, False, False, True):
+                   "DomainRandomizedEnv.step_batch, and its auto-reset "
+                   "under spawn_heading_noise",
+               (False, False, False, True):
+                   "DomainRandomizedEnv under physics substeps or delayed "
+                   "obs"}
 
 
 def check_variant(env_statics, fresh_statics, ws_compare, dr_params=None):
+    """The ``K1_VARIANTS`` key of a call's flags; raises if it is not
+    compiled."""
     key = (env_statics is not None, fresh_statics is not None,
            bool(ws_compare), dr_params is not None)
     if key not in K1_VARIANTS:
@@ -1262,6 +1273,7 @@ def check_variant(env_statics, fresh_statics, ws_compare, dr_params=None):
             f"step kernel: no variant with_env={key[0]}, with_fresh={key[1]}"
             f", ws_compare={key[2]}, dr={key[3]}; compiled: "
             f"{sorted(K1_VARIANTS)}")
+    return key
 
 
 def step_fused(model, qpos, qvel, ctrl, warmstart, env_in=None,
@@ -1275,8 +1287,9 @@ def step_fused(model, qpos, qvel, ctrl, warmstart, env_in=None,
     with ``fresh_statics``], B).  CPU tensors take ``step_plain``; CUDA
     tensors launch ``csrc/step_kernel.cu`` (K1e: ``step_kernel_dr.cu``).
     Only the flag sets of ``K1_VARIANTS`` are accepted, on either device.
-    ``launches`` counts K1 launches, ``launches_dr`` K1e launches."""
-    check_variant(env_statics, fresh_statics, ws_compare, dr_params)
+    ``launches`` counts K1 launches, ``launches_dr`` K1e launches, and
+    ``by_variant`` both by their ``K1_VARIANTS`` key."""
+    key = check_variant(env_statics, fresh_statics, ws_compare, dr_params)
     if qpos.device.type == "cpu":
         return step_plain(model, qpos, qvel, ctrl, warmstart, env_in,
                           env_statics, fresh_statics, ws_compare, dr_params)
@@ -1292,11 +1305,13 @@ def step_fused(model, qpos, qvel, ctrl, warmstart, env_in=None,
         step_fused.launches += 1
     else:
         step_fused.launches_dr += 1
+    step_fused.by_variant[key] += 1
     return out
 
 
 step_fused.launches = 0
 step_fused.launches_dr = 0
+step_fused.by_variant = collections.Counter()
 
 
 def launch_k1(lib, model, qpos, qvel, ctrl, warmstart, env_in, env_statics,

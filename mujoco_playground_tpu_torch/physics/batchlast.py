@@ -2,9 +2,10 @@
 package's ``physics/batchlast.py``).
 
 Every array carries the env batch in its last axis: quaternions (4, B),
-positions (3, B), the mass matrix (nv, nv, B).  Model parameters may carry
-a leading env axis (domain randomization); ``_param_bl`` moves it last so
-it broadcasts against the batch.
+positions (3, B), the mass matrix (nv, nv, B).  Any model parameter may
+carry a leading env axis (domain randomization); every stage reads the
+parameters through ``_param_bl``, which moves it last so it broadcasts
+against the batch.
 """
 from __future__ import annotations
 
@@ -80,11 +81,15 @@ def fk_bl(model: Model, qpos_bl):
     jnts_of = {b: [] for b in range(model.nbody)}
     for j in range(model.njnt):
         jnts_of[model.jnt_body[j]].append(j)
-    qpos0 = model.qpos0
+    qpos0 = _param_bl(model.qpos0, 1)
+    body_pos, body_quat = (_param_bl(model.body_pos, 2),
+                           _param_bl(model.body_quat, 2))
+    jnt_pos, jnt_axis = (_param_bl(model.jnt_pos, 2),
+                         _param_bl(model.jnt_axis, 2))
     for b in range(1, model.nbody):
         p = model.body_parent[b]
-        pos = xpos[p] + quat_rotate_bl(xquat[p], model.body_pos[b][:, None])
-        quat = quat_mul_bl(xquat[p], model.body_quat[b][:, None])
+        pos = xpos[p] + quat_rotate_bl(xquat[p], _col_or_bl(body_pos[b]))
+        quat = quat_mul_bl(xquat[p], _col_or_bl(body_quat[b]))
         for j in jnts_of[b]:
             adr = model.jnt_qposadr[j]
             t = model.jnt_type[j]
@@ -95,17 +100,17 @@ def fk_bl(model: Model, qpos_bl):
                                       + q[3] ** 2)
             elif t == JNT_HINGE:
                 theta = qpos_bl[adr] - qpos0[adr]
-                jp = model.jnt_pos[j][:, None]
+                jp = _col_or_bl(jnt_pos[j])
                 anchor = pos + quat_rotate_bl(quat, jp)
                 half = theta * 0.5
                 s = torch.sin(half)
-                ax = model.jnt_axis[j]
+                ax = jnt_axis[j]
                 quat = quat_mul_bl(quat, torch.stack(
                     [torch.cos(half), ax[0] * s, ax[1] * s, ax[2] * s]))
-                if bool((model.jnt_pos[j] != 0).any()):
+                if bool((jnt_pos[j] != 0).any()):
                     pos = anchor - quat_rotate_bl(quat, jp)
             else:  # slide
-                pos = pos + quat_rotate_bl(quat, model.jnt_axis[j][:, None]) \
+                pos = pos + quat_rotate_bl(quat, _col_or_bl(jnt_axis[j])) \
                     * (qpos_bl[adr] - qpos0[adr])
         xpos.append(pos)
         xquat.append(quat)
@@ -116,6 +121,8 @@ def motion_subspace_bl(model: Model, xpos, xquat, anchor):
     """Per-dof spatial vectors about ``anchor``: a list of nv (6, B)."""
     B = anchor.shape[-1]
     S = []
+    jnt_pos, jnt_axis = (_param_bl(model.jnt_pos, 2),
+                         _param_bl(model.jnt_axis, 2))
     for j in range(model.njnt):
         b = model.jnt_body[j]
         t = model.jnt_type[j]
@@ -129,11 +136,11 @@ def motion_subspace_bl(model: Model, xpos, xquat, anchor):
                 w = R[:, k]
                 S.append(torch.cat([w, _cross_bl(w, anchor - xpos[b])]))
         else:
-            axis_w = quat_rotate_bl(xquat[b], model.jnt_axis[j][:, None])
+            axis_w = quat_rotate_bl(xquat[b], _col_or_bl(jnt_axis[j]))
             anch = xpos[b]
-            if bool((model.jnt_pos[j] != 0).any()):
+            if bool((jnt_pos[j] != 0).any()):
                 anch = anch + quat_rotate_bl(xquat[b],
-                                             model.jnt_pos[j][:, None])
+                                             _col_or_bl(jnt_pos[j]))
             if t == JNT_HINGE:
                 S.append(torch.cat([axis_w, _cross_bl(axis_w,
                                                       anchor - anch)]))
@@ -229,8 +236,8 @@ def crba_bias_bl(model: Model, xpos, xquat, qvel_bl, gravity):
         _motion_cross_bl(vbody[body_of[model.dof_body[d]]], S[d])
         * qvel_bl[d] if carried[d] else torch.zeros((6, B), **dt)
         for d in range(nv)])                                   # (nv, 6, B)
-    g = torch.as_tensor(gravity, **dt)
-    a0 = torch.cat([torch.zeros((3, B), **dt), (-g)[:, None].expand(3, B)])
+    g = _col_or_bl(_param_bl(torch.as_tensor(gravity, **dt), 1))
+    a0 = torch.cat([torch.zeros((3, B), **dt), (-g).expand(3, B)])
     abody = a0[None] + torch.einsum('bv,vkB->bkB', mask_c, cdot)
     Iv = torch.einsum('bklB,blB->bkB', Ibar, vbody)
     Ia = torch.einsum('bklB,blB->bkB', Ibar, abody)
@@ -241,16 +248,17 @@ def crba_bias_bl(model: Model, xpos, xquat, qvel_bl, gravity):
 
 
 def actuator_force_bl(model: Model, qpos_bl, qvel_bl, ctrl_bl):
-    """(nu, B) ctrl -> (nv, B) generalized force; gain and bias may carry
-    a per-env axis, the ranges are static."""
+    """(nu, B) ctrl -> (nv, B) generalized force; gain, bias and the
+    ranges may carry a per-env axis."""
     gain = _param_bl(model.actuator_gain, 1)
     bias = _param_bl(model.actuator_bias, 2)
+    ctrlrange = _param_bl(model.actuator_ctrlrange, 2)
+    forcerange = _param_bl(model.actuator_forcerange, 2)
     out = torch.zeros((model.nv, qpos_bl.shape[-1]), dtype=qpos_bl.dtype,
                       device=qpos_bl.device)
     for u in range(model.nu):
         d = model.actuator_dof[u]
-        cr = model.actuator_ctrlrange[u]
-        fr = model.actuator_forcerange[u]
+        cr, fr = ctrlrange[u], forcerange[u]
         c = torch.clamp(ctrl_bl[u], cr[0], cr[1])
         force = (gain[u] * c + bias[u, 0]
                  + bias[u, 1] * qpos_bl[dof_qposadr(model, d)]

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from mujoco_playground_tpu_torch.physics import mathutil as mu
-from mujoco_playground_tpu_torch.physics.model import Model
+from mujoco_playground_tpu_torch.physics.model import (Model, env_count,
+                                                       env_leaf)
 
 TOPK_W = 2  # scene boxes tested per wheel
 
@@ -38,10 +39,12 @@ class Contacts:
     pos: torch.Tensor          # (B, C, 3) contact position (world)
     frame: torch.Tensor        # (B, C, 3, 3) rows [n, t1, t2]
     dist: torch.Tensor         # (B, C) signed distance (< 0: penetrating)
-    friction: torch.Tensor     # (C,) isotropic tangential mu
-    solref: torch.Tensor       # (C, 2)
-    solimp: torch.Tensor       # (C, 5)
-    diag_approx: torch.Tensor  # (C,) trn invweight of the robot body
+    # the slot statics, per env of a randomized model (E = B) or shared by
+    # every env (E = 1)
+    friction: torch.Tensor     # (E, C) isotropic tangential mu
+    solref: torch.Tensor       # (E, C, 2)
+    solimp: torch.Tensor       # (E, C, 5)
+    diag_approx: torch.Tensor  # (E, C) trn invweight of the robot body
     body: np.ndarray           # (C,) static robot body of each slot
 
 
@@ -125,14 +128,31 @@ def _cylinder_box(c, a, r, h, bp, bs, patch=False):
 
 def collide(model: Model, xpos, xquat) -> Contacts:
     """All contact slots of a batch: xpos (B, nbody, 3), xquat (B, nbody,
-    4)."""
+    4).  ``model`` may carry a leading env axis of B on any leaf (domain
+    randomization): every field is read through ``env_leaf``, so each env
+    collides with its own values; the slot statics then have B rows."""
     B = xpos.shape[0]
+    E = env_count(model)
+
+    def P(name):
+        return env_leaf(model, name, E)
+
     nw = len(model.wheel_body)
     zhat = _vec([0.0, 0.0, 1.0], xpos)
     rows = torch.arange(B, device=xpos.device)
+    env_rows = rows if E > 1 else 0
+
+    def take(t, idx):
+        """t (E, K, ...) at each env's index idx (B,): (B, ...)."""
+        return t[env_rows, idx]
+
     pos_l, frame_l, dist_l, fric_l, solref_l, solimp_l, diag_l, body_l = (
         [], [], [], [], [], [], [], [])
-    iw = model.body_invweight0[:, 0]
+    iw = P("body_invweight0")[:, :, 0]                       # (E, nbody)
+    plane_z = P("plane_z")                                   # (E,)
+    plane_friction = P("plane_friction")[:, 0]
+    plane_solref, plane_solimp = P("plane_solref"), P("plane_solimp")
+    box_pos, box_size = P("scene_box_pos"), P("scene_box_size")
 
     def emit(p, frame, dist, fric, solref, solimp, diag, b):
         pos_l.append(p)
@@ -146,17 +166,17 @@ def collide(model: Model, xpos, xquat) -> Contacts:
 
     def combine(w):
         # MuJoCo's default mixing: friction max, solref/solimp mean
-        return (torch.maximum(model.wheel_friction[w, 0],
-                              model.plane_friction[0]),
-                0.5 * (model.wheel_solref[w] + model.plane_solref),
-                0.5 * (model.wheel_solimp[w] + model.plane_solimp))
+        return (torch.maximum(P("wheel_friction")[:, w, 0], plane_friction),
+                0.5 * (P("wheel_solref")[:, w] + plane_solref),
+                0.5 * (P("wheel_solimp")[:, w] + plane_solimp))
 
     def wheel_frame(w):
         b = model.wheel_body[w]
-        c = xpos[:, b] + mu.quat_rotate(xquat[:, b],
-                                        model.wheel_pos[w].expand(B, 3))
-        a = mu.quat_rotate(xquat[:, b], model.wheel_axis[w].expand(B, 3))
-        return b, c, a, model.wheel_size[w, 0], model.wheel_size[w, 1]
+        c = xpos[:, b] + mu.quat_rotate(
+            xquat[:, b], P("wheel_pos")[:, w].expand(B, 3))
+        a = mu.quat_rotate(xquat[:, b], P("wheel_axis")[:, w].expand(B, 3))
+        size = P("wheel_size")[:, w]
+        return b, c, a, size[:, 0:1], size[:, 1:2]
 
     plane_frame = _make_frame(zhat).expand(B, 3, 3)
 
@@ -171,9 +191,9 @@ def collide(model: Model, xpos, xquat) -> Contacts:
                              _vec([-1.0, 0.0, 0.0], proj))
 
         def emit_plane(p):
-            dist = p[:, 2] - model.plane_z
+            dist = p[:, 2] - plane_z
             emit(p - 0.5 * dist[:, None] * zhat, plane_frame, dist, fric,
-                 solref, solimp, iw[b], b)
+                 solref, solimp, iw[:, b], b)
 
         for sgn in (-1.0, 1.0):
             emit_plane(c + sgn * h * a - r * raddir)
@@ -187,38 +207,37 @@ def collide(model: Model, xpos, xquat) -> Contacts:
     # wheels vs the TOPK_W boxes nearest by squared surface distance
     K = model.num_scene_boxes
     if K > 0:
-        box_pos, box_size = model.scene_box_pos, model.scene_box_size
         for w in range(nw):
             b, c, a, r, h = wheel_frame(w)
             fric, solref, solimp = combine(w)
-            d2 = (torch.clamp_min(torch.abs(box_pos[None] - c[:, None])
-                                  - box_size[None], 0.0) ** 2).sum(-1)
+            d2 = (torch.clamp_min(torch.abs(box_pos - c[:, None])
+                                  - box_size, 0.0) ** 2).sum(-1)
             idx = torch.sort(d2, dim=-1, stable=True).indices
             for k in range(min(TOPK_W, K)):
-                bp, bs = box_pos[idx[:, k]], box_size[idx[:, k]]
+                bp, bs = take(box_pos, idx[:, k]), take(box_size, idx[:, k])
                 for dist, n, p in _cylinder_box(
                         c, a, r, h, bp, bs, patch=model.compat_wheel_patch):
                     emit(p, _make_frame(n), dist, fric, solref, solimp,
-                         iw[b], b)
+                         iw[:, b], b)
 
     # chassis convex hulls: one vertex per body-frame-xy quadrant (or the
     # compat support face) vs the plane, and vs the nearest box
     for i, b in enumerate(model.chassis_box_body):
         Rb = mu.quat_to_mat(xquat[:, b])
-        verts = xpos[:, b, None, :] + model.chassis_hull_verts[i] @ \
+        verts = xpos[:, b, None, :] + P("chassis_hull_verts")[:, i] @ \
             Rb.transpose(-1, -2)                               # (B, V, 3)
         bias = torch.as_tensor(model.chassis_hull_bias[i], dtype=xpos.dtype,
                                device=xpos.device)
         quads = [torch.as_tensor(q, device=xpos.device)
                  for q in model.chassis_hull_quadrants[i]]
-        fric = torch.clamp_min(model.plane_friction[0], 1.0)
-        solref, solimp = model.plane_solref, model.plane_solimp
-        dists = verts[..., 2] - model.plane_z
+        fric = torch.clamp_min(plane_friction, 1.0)
+        solref, solimp = plane_solref, plane_solimp
+        dists = verts[..., 2] - plane_z[:, None]
         score = dists - bias
 
         def emit_plane(p, dist):
             emit(p - 0.5 * dist[:, None] * zhat, plane_frame, dist, fric,
-                 solref, solimp, iw[b], b)
+                 solref, solimp, iw[:, b], b)
 
         if model.compat_flat_manifold:
             faces = np.asarray(model.chassis_hull_faces[i], np.int64)
@@ -247,23 +266,20 @@ def collide(model: Model, xpos, xquat) -> Contacts:
                 emit_plane(verts[rows, k], dists[rows, k])
         if K > 0:
             center = xpos[:, b] + mu.quat_rotate(
-                xquat[:, b], model.chassis_box_pos[i].expand(B, 3))
-            d2 = (torch.clamp_min(torch.abs(model.scene_box_pos[None]
-                                            - center[:, None])
-                                  - model.scene_box_size[None], 0.0)
-                  ** 2).sum(-1)
+                xquat[:, b], P("chassis_box_pos")[:, i].expand(B, 3))
+            d2 = (torch.clamp_min(torch.abs(box_pos - center[:, None])
+                                  - box_size, 0.0) ** 2).sum(-1)
             j = torch.argmin(d2, dim=-1)
-            bdist, bn, bpos = _point_box(
-                verts, model.scene_box_pos[j][:, None],
-                model.scene_box_size[j][:, None])
+            bdist, bn, bpos = _point_box(verts, take(box_pos, j)[:, None],
+                                         take(box_size, j)[:, None])
             bscore = bdist - bias
             for q in quads:
                 k = q[torch.argmin(bscore[:, q], dim=-1)]
                 emit(bpos[rows, k], _make_frame(bn[rows, k]),
-                     bdist[rows, k], fric, solref, solimp, iw[b], b)
+                     bdist[rows, k], fric, solref, solimp, iw[:, b], b)
 
     return Contacts(
         pos=torch.stack(pos_l, 1), frame=torch.stack(frame_l, 1),
-        dist=torch.stack(dist_l, 1), friction=torch.stack(fric_l),
-        solref=torch.stack(solref_l), solimp=torch.stack(solimp_l),
-        diag_approx=torch.stack(diag_l), body=np.asarray(body_l, np.int64))
+        dist=torch.stack(dist_l, 1), friction=torch.stack(fric_l, 1),
+        solref=torch.stack(solref_l, 1), solimp=torch.stack(solimp_l, 1),
+        diag_approx=torch.stack(diag_l, 1), body=np.asarray(body_l, np.int64))

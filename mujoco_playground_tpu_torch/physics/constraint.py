@@ -21,7 +21,8 @@ import torch
 
 from mujoco_playground_tpu_torch.physics import kinematics
 from mujoco_playground_tpu_torch.physics.collision import Contacts
-from mujoco_playground_tpu_torch.physics.model import Model
+from mujoco_playground_tpu_torch.physics.model import (Model, env_count,
+                                                       env_leaf)
 
 # Row kinds (static codes).
 EQ = 0        # two-sided quadratic
@@ -79,9 +80,17 @@ def dof_qposadr(model: Model, dof: int) -> int:
 
 def make_efc(model: Model, qpos, qvel, S, anchor, contacts: Contacts) -> Efc:
     """Rows of a batch: qpos (B, nq), qvel (B, nv), S (B, nv, 6) about
-    anchor (B, 3), and the batch's contacts."""
+    anchor (B, 3), and the batch's contacts.  ``model`` may carry a leading
+    env axis of B on any leaf (domain randomization): every field is read
+    through ``env_leaf``, so each env's rows take its own values."""
     B = qpos.shape[0]
+    E = env_count(model)
+
+    def P(name):
+        return env_leaf(model, name, E)
+
     dt = dict(dtype=qpos.dtype, device=qpos.device)
+    qpos0, iw = P("qpos0"), P("dof_invweight0")
     one = torch.ones(B, **dt)
     zero = torch.zeros(B, **dt)
     dof1_l, dof2_l, c1_l, c2_l = [], [], [], []
@@ -90,16 +99,16 @@ def make_efc(model: Model, qpos, qvel, S, anchor, contacts: Contacts) -> Efc:
     # equality: joint couplings q1 = poly(q2)
     for e, (d1, d2) in enumerate(model.eq_dof_pairs):
         q1adr, q2adr = dof_qposadr(model, d1), dof_qposadr(model, d2)
-        q2 = qpos[:, q2adr] - model.qpos0[q2adr]
-        coef = model.eq_polycoef[e]
+        q2 = qpos[:, q2adr] - qpos0[:, q2adr]
+        coef = P("eq_polycoef")[:, e].unbind(-1)
         poly = (coef[0] + coef[1] * q2 + coef[2] * q2 ** 2
                 + coef[3] * q2 ** 3 + coef[4] * q2 ** 4)
         dpoly = (coef[1] + 2 * coef[2] * q2 + 3 * coef[3] * q2 ** 2
                  + 4 * coef[4] * q2 ** 3)
-        pos = (qpos[:, q1adr] - model.qpos0[q1adr]) - poly
+        pos = (qpos[:, q1adr] - qpos0[:, q1adr]) - poly
         vel = qvel[:, d1] - dpoly * qvel[:, d2]
-        aref, d = kbi(model.eq_solref[e], model.eq_solimp[e], pos, vel)
-        diag = model.dof_invweight0[d1] + model.dof_invweight0[d2]
+        aref, d = kbi(P("eq_solref")[:, e], P("eq_solimp")[:, e], pos, vel)
+        diag = iw[:, d1] + iw[:, d2]
         dof1_l.append(d1)
         dof2_l.append(d2)
         c1_l.append(one)
@@ -120,9 +129,8 @@ def make_efc(model: Model, qpos, qvel, S, anchor, contacts: Contacts) -> Efc:
         c1_l.append(one)
         c2_l.append(zero)
         aref_l.append(aref)
-        R_l.append(torch.clamp_min(
-            (1.0 - d) / d * model.dof_invweight0[d1], 1e-10))
-        fl_l.append(model.dof_frictionloss[d1].expand(B))
+        R_l.append(torch.clamp_min((1.0 - d) / d * iw[:, d1], 1e-10))
+        fl_l.append(P("dof_frictionloss")[:, d1].expand(B))
         act_l.append(one)
         kind_l.append(FRICTION)
 
@@ -130,23 +138,23 @@ def make_efc(model: Model, qpos, qvel, S, anchor, contacts: Contacts) -> Efc:
     for d1 in model.limited_dofs:
         jid = model.dof_jnt[d1]
         qadr = dof_qposadr(model, d1)
+        rng = P("jnt_range")[:, jid]
         for side in (0, 1):
             if side == 0:
-                dist = qpos[:, qadr] - model.jnt_range[jid, 0]
+                dist = qpos[:, qadr] - rng[:, 0]
                 coef = one
             else:
-                dist = model.jnt_range[jid, 1] - qpos[:, qadr]
+                dist = rng[:, 1] - qpos[:, qadr]
                 coef = -one
-            aref, d = kbi(model.jnt_solref_limit[jid],
-                          model.jnt_solimp_limit[jid],
+            aref, d = kbi(P("jnt_solref_limit")[:, jid],
+                          P("jnt_solimp_limit")[:, jid],
                           torch.clamp_max(dist, 0.0), coef * qvel[:, d1])
             dof1_l.append(d1)
             dof2_l.append(0)
             c1_l.append(coef)
             c2_l.append(zero)
             aref_l.append(aref)
-            R_l.append(torch.clamp_min(
-                (1.0 - d) / d * model.dof_invweight0[d1], 1e-10))
+            R_l.append(torch.clamp_min((1.0 - d) / d * iw[:, d1], 1e-10))
             fl_l.append(zero)
             act_l.append((dist < 0).to(qpos.dtype))
             kind_l.append(CONE)
@@ -167,8 +175,8 @@ def make_efc(model: Model, qpos, qvel, S, anchor, contacts: Contacts) -> Efc:
     mu_ = contacts.friction
     act = (contacts.dist < 0).to(qpos.dtype)
     d_imp = impedance(contacts.solimp, contacts.dist)
-    dmax = contacts.solimp[:, 1]
-    tc, zeta = contacts.solref[:, 0], contacts.solref[:, 1]
+    dmax = contacts.solimp[..., 1]
+    tc, zeta = contacts.solref[..., 0], contacts.solref[..., 1]
     bcoef = 2.0 / (dmax * tc)
     kcoef = d_imp / (dmax * dmax * tc * tc * zeta * zeta)
     diag = torch.clamp_min(
@@ -179,7 +187,7 @@ def make_efc(model: Model, qpos, qvel, S, anchor, contacts: Contacts) -> Efc:
     vt2 = (Jt2 * qvel[:, None]).sum(-1)
     vel4 = torch.stack([vn + mu_ * vt1, vn - mu_ * vt1,
                         vn + mu_ * vt2, vn - mu_ * vt2], dim=-1)
-    aref4 = -bcoef[:, None] * vel4 - (kcoef * contacts.dist)[..., None]
+    aref4 = -bcoef[..., None] * vel4 - (kcoef * contacts.dist)[..., None]
 
     def stk(xs):
         # a model without equality/friction/limit rows has no joint rows

@@ -1,4 +1,5 @@
-"""Mass matrix (CRBA) and the compile-time invweight0 constants.
+"""Mass matrix (CRBA), bias forces (RNEA) of one env, and the compile-time
+invweight0 constants.
 
 M = sum_b J_b^T I_b J_b with the static (nbody, nv) ancestor mask; spatial
 quantities are anchored at the root body's position.
@@ -8,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from mujoco_playground_tpu_torch.physics import kinematics, mathutil as mu
-from mujoco_playground_tpu_torch.physics.model import Model
+from mujoco_playground_tpu_torch.physics.model import JNT_FREE, Model
 
 
 def body_spatial_inertia(model: Model, xpos, xquat, anchor):
@@ -28,6 +29,30 @@ def crba(model: Model, xpos, xquat, mask):
     J = torch.einsum('dk,bd->bkd', S, mask)
     M = torch.einsum('bki,bkl,blj->ij', J, Ibar, J)
     return M + torch.diag(model.dof_armature), S, anchor
+
+
+def bias_force(model: Model, xpos, xquat, qvel, S, mask, anchor):
+    """qfrc_bias (nv,) of one env: Coriolis, centrifugal and gravity forces
+    (MuJoCo's sign: M qacc + qfrc_bias = qfrc_applied)."""
+    Ibar = body_spatial_inertia(model, xpos, xquat, anchor)
+    J = kinematics.body_jacobians(model, S, mask)
+    vbody = torch.einsum('bkd,d->bk', J, qvel)                 # (nbody, 6)
+    # velocity-product terms cdot[d] = v_body(d) x S_d qvel_d, for the dofs
+    # whose axes the body carries (none for a free joint's translation)
+    carried = torch.ones(model.nv, dtype=S.dtype, device=S.device)
+    for j in range(model.njnt):
+        if model.jnt_type[j] == JNT_FREE:
+            adr = model.jnt_dofadr[j]
+            carried[adr:adr + 3] = 0.0
+    vd = vbody[torch.as_tensor(model.dof_body, device=S.device)]
+    cdot = mu.motion_cross(vd, S) * (qvel * carried)[:, None]  # (nv, 6)
+    # the fictitious base acceleration a0 = [0; -g] carries gravity
+    a0 = torch.cat([torch.zeros_like(model.gravity), -model.gravity])
+    abody = a0 + torch.einsum('bd,dk->bk', mask, cdot)
+    fbody = (torch.einsum('bkl,bl->bk', Ibar, abody)
+             + mu.force_cross(vbody, torch.einsum('bkl,bl->bk', Ibar,
+                                                  vbody)))
+    return torch.einsum('bkd,bk->d', J, fbody)
 
 
 def invweight0(model: Model):

@@ -2,8 +2,10 @@
 semantics: a free joint's qpos is the body's world pose, hinge axes live in
 the body frame, a free joint's angular velocity is body-local).
 
-These serve the model compiler and ``make_state``; the stepping path has
-its own copy inside the step kernel and its plain twin (``ops/step.py``).
+These serve the model compiler, ``make_state``, the per-env step
+(``engine.forward``) and the per-env scan (``raycast.lidar``); the fused
+stepping path has its own copy inside the step kernel and its plain twin
+(``ops/step.py``).
 """
 from __future__ import annotations
 
@@ -97,3 +99,21 @@ def point_jacobian(S, point, anchor):
     v(point) = S_lin + S_ang x (point - anchor)."""
     return S[:, 3:] + torch.linalg.cross(S[:, :3],
                                          (point - anchor).expand_as(S[:, :3]))
+
+
+def body_jacobians(model: Model, S, mask):
+    """(nbody, 6, nv) body spatial Jacobians from the motion subspace S
+    (nv, 6) and the ancestor mask (nbody, nv)."""
+    return torch.einsum('dk,bd->bkd', S, mask)
+
+
+def site_frames(model: Model, xpos, xquat):
+    """World positions and z-axes of all sites, (..., nsite, 3) each, from
+    body frames xpos (..., nbody, 3), xquat (..., nbody, 4).  The site
+    leaves may carry a leading env axis (domain randomization) that matches
+    the frames' batch."""
+    body = torch.as_tensor(model.site_body, device=xpos.device)
+    bpos, bquat = xpos[..., body, :], xquat[..., body, :]
+    pos = bpos + mu.quat_rotate(bquat, model.site_pos.expand_as(bpos))
+    quat = mu.quat_mul(bquat, model.site_quat.expand_as(bquat))
+    return pos, mu.quat_to_mat(quat)[..., :, 2]

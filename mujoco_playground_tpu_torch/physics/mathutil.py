@@ -29,6 +29,13 @@ def quat_rotate(q, v):
     return v + 2.0 * (w * uv + torch.linalg.cross(u, uv))
 
 
+def quat_rotate_inv(q, v):
+    """Rotate vector(s) v by the inverse of quaternion(s) q."""
+    qc = q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                          device=q.device)
+    return quat_rotate(qc, v)
+
+
 def quat_to_mat(q):
     """Quaternion -> 3x3 rotation matrix."""
     w, x, y, z = q.unbind(-1)
@@ -49,6 +56,20 @@ def quat_from_axis_angle(axis, angle):
     return torch.cat([w, axis * s], dim=-1)
 
 
+def quat_integrate(q, omega, dt):
+    """q integrated by the body-frame angular velocity omega over dt
+    (MuJoCo ``mju_quatIntegrate``: q' = q * exp(dt omega / 2)),
+    normalized."""
+    angle = torch.linalg.norm(omega, dim=-1, keepdim=True)
+    safe = torch.where(angle > 1e-14, angle, torch.ones_like(angle))
+    dq = quat_from_axis_angle(omega / safe, (angle * dt)[..., 0])
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=q.dtype,
+                         device=q.device)
+    dq = torch.where(angle > 1e-14, dq, ident)
+    out = quat_mul(q, dq)
+    return out / torch.linalg.norm(out, dim=-1, keepdim=True)
+
+
 def quat_to_yaw(q):
     """Yaw (rotation about world Z) of a quaternion."""
     w, x, y, z = q.unbind(-1)
@@ -61,6 +82,22 @@ def skew(v):
     zero = torch.zeros_like(x)
     m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
     return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def motion_cross(v, s):
+    """Spatial motion cross product v x s (both motion vectors)."""
+    cross = torch.linalg.cross
+    return torch.cat([cross(v[..., :3], s[..., :3]),
+                      cross(v[..., 3:], s[..., :3])
+                      + cross(v[..., :3], s[..., 3:])], dim=-1)
+
+
+def force_cross(v, f):
+    """Spatial force cross product v x* f (motion v, force f)."""
+    cross = torch.linalg.cross
+    return torch.cat([cross(v[..., :3], f[..., :3])
+                      + cross(v[..., 3:], f[..., 3:]),
+                      cross(v[..., :3], f[..., 3:])], dim=-1)
 
 
 def spatial_inertia(mass, inertia_world, com_rel):

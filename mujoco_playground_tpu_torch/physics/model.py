@@ -51,6 +51,21 @@ ARRAY_FIELDS = (
     "plane_friction", "plane_solref", "plane_solimp", "scene_box_pos",
     "scene_box_size", "gravity", "timestep", "sensor_cutoff")
 
+# The rank of each array field in one env's model.  Under domain
+# randomization a field may carry one more, leading, axis: a value per env.
+FIELD_NDIM = dict(
+    body_pos=2, body_quat=2, body_mass=1, body_ipos=2, body_iquat=2,
+    body_inertia=2, body_invweight0=2, jnt_axis=2, jnt_pos=2, jnt_range=2,
+    jnt_solref_limit=2, jnt_solimp_limit=2, dof_damping=1, dof_armature=1,
+    dof_frictionloss=1, dof_invweight0=1, qpos0=1, site_pos=2, site_quat=2,
+    actuator_gain=1, actuator_bias=2, actuator_ctrlrange=2,
+    actuator_forcerange=2, eq_polycoef=2, eq_solref=2, eq_solimp=2,
+    wheel_pos=2, wheel_axis=2, wheel_size=2, wheel_friction=2,
+    wheel_solref=2, wheel_solimp=2, chassis_box_pos=2, chassis_box_quat=2,
+    chassis_box_size=2, chassis_hull_verts=3, plane_z=0, plane_half_size=1,
+    plane_friction=1, plane_solref=1, plane_solimp=1, scene_box_pos=2,
+    scene_box_size=2, gravity=1, timestep=0, sensor_cutoff=1)
+
 
 @dataclasses.dataclass(eq=False)
 class Model:
@@ -165,6 +180,32 @@ class Model:
     @property
     def device(self):
         return self.body_pos.device
+
+
+def randomized_fields(model: Model) -> tuple:
+    """Names of the array fields that carry a leading env axis (domain
+    randomization), in ``ARRAY_FIELDS`` order."""
+    return tuple(name for name in ARRAY_FIELDS
+                 if getattr(model, name).dim() > FIELD_NDIM[name])
+
+
+def env_count(model: Model) -> int:
+    """The env axis of a randomized model's leaves; 1 for a plain model."""
+    names = randomized_fields(model)
+    return getattr(model, names[0]).shape[0] if names else 1
+
+
+def env_leaf(model: Model, name: str, n_env: int):
+    """Field ``name`` with a leading env axis of ``n_env``: a randomized
+    leaf as it is, any other broadcast (a view).  The batched stages read
+    every model field through this, so that a randomized leaf is never
+    indexed along its env axis by mistake."""
+    x = getattr(model, name)
+    if x.dim() > FIELD_NDIM[name]:
+        if x.shape[0] != n_env:
+            raise ValueError(f"{name}: {x.shape[0]} envs, expected {n_env}")
+        return x
+    return x.expand((n_env,) + x.shape)
 
 
 def _rot(q):

@@ -66,3 +66,35 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                           cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_k1_ops_of_the_plain_physics_step():
+    """The bound of K1 ``<0,0,0>`` counts the physics without the two scans
+    and the env rows: their operations come off the fused step's."""
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    env = make_ackermann_env("maze", "umaze", device="cpu",
+                             solver_iterations=4, ls_iterations=3)
+    model = env.model
+    active = [0.5] * 48
+    fused = chip_smoke.k1_ops(model, active)
+    plain = chip_smoke.k1_ops(model, active, fresh=False, env=False)
+    nbox = model.num_scene_boxes
+    scans = 2 * model.nsite * (72 + 27 * nbox)
+    rows = 60 + model.nsite + 8 * model.nbody
+    assert fused - plain == scans + rows
+    assert 0 < plain < fused
+
+
+def test_shifted_ranges_bind_the_outer_envs():
+    """Per-env joint ranges for the staged DR check: every env's range
+    differs, and q = 0 lies outside the outer envs' limited ranges."""
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    model = make_ackermann_env("maze", "umaze", device="cpu").model
+    rng = chip_smoke.shifted_ranges(model, 8)
+    assert rng.shape == (8,) + model.jnt_range.shape
+    jid = model.dof_jnt[model.limited_dofs[0]]
+    lo, hi = rng[:, jid, 0], rng[:, jid, 1]
+    assert len(set(lo.tolist())) == 8
+    outside = (lo > 0) | (hi < 0)
+    assert bool(outside[0]) and bool(outside[-1])
+    assert not bool(outside[3:5].any())

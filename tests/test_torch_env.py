@@ -16,6 +16,9 @@ at B=8, fed the same states, actions and reset samples.
   after contact-set changes.
 * The torch generator's reset distribution: start cell != goal cell, and
   start and goal within +-0.25 cell of their cells.
+* The reference-compat knobs and a randomization outside DR_SUPPORTED
+  construct and step (their parity with JAX: ``test_torch_compat_knobs.py``,
+  ``test_torch_staged_dr.py``).
 """
 import dataclasses
 
@@ -31,6 +34,9 @@ from mujoco_playground_tpu.envs import make_ackermann_env as jax_make_env
 from mujoco_playground_tpu_torch import interop
 from mujoco_playground_tpu_torch.envs import (make_ackermann_env,
                                               randomize_model)
+from mujoco_playground_tpu_torch.ops import lidar as k2
+from mujoco_playground_tpu_torch.ops import step as k1
+from mujoco_playground_tpu_torch.physics import engine
 
 B = 8
 ANGLE = 78   # the goal-angle column of the observation
@@ -153,10 +159,28 @@ def test_env_state_arrays_round_trip(envs):
 
 @pytest.mark.parametrize("knob", [
     dict(reference_delayed_obs=True), dict(physics_substeps=2)])
-def test_unported_configurations_raise(knob):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, item 1 'Reference-compat"):
-        make_ackermann_env("maze", "umaze", device="cpu", **knob)
+def test_compat_configurations_step(knob):
+    """The reference-compat knobs construct and step: under delayed obs
+    the step's observation is that of the pre-step physics; two substeps
+    advance the physics by two timesteps.  (``test_torch_compat_knobs.py``
+    and ``test_torch_compat_substeps.py`` hold them against JAX.)"""
+    penv = make_ackermann_env("maze", "umaze", device="cpu", seed=2,
+                              solver_iterations=4, ls_iterations=3, **knob)
+    st = penv.reset(2)
+    new = penv.step_batch(st, torch.tensor([[0.5, 0.2], [0.8, -0.4]]))
+    h = float(penv.model.timestep)
+    n = knob.get("physics_substeps", 1)
+    np.testing.assert_allclose(new.physics.time.numpy(), n * h, rtol=1e-6)
+    assert not torch.equal(new.physics.qpos, st.physics.qpos)
+    moved = penv._observe_batch(new.physics, st.odom_ref, st.goal)[0]
+    before = penv._observe_batch(st.physics, st.odom_ref, st.goal)[0]
+    if knob.get("reference_delayed_obs"):
+        np.testing.assert_array_equal(new.obs.numpy(), before.numpy())
+    else:
+        np.testing.assert_allclose(new.obs.numpy(), moved.numpy(),
+                                   atol=1e-5)
+    nxt = penv.step_autoreset_batch(new, torch.zeros((2, 2)))
+    assert bool(torch.isfinite(nxt.obs).all())
 
 
 @pytest.mark.parametrize("knob", [
@@ -170,14 +194,24 @@ def test_solved_task_knobs_construct(knob):
     assert env.reset(2).obs.shape == (2, env.obs_size)
 
 
-def test_domain_randomization_raises(envs):
-    """A randomized leaf outside DR_SUPPORTED (here the joint ranges) needs
-    the JAX package's staged DR fallback, which is not ported."""
+def test_domain_randomization_outside_dr_supported_steps(envs,
+                                                        monkeypatch):
+    """A randomized leaf outside DR_SUPPORTED (here the joint ranges) takes
+    the staged DR fallback: K3 (its twin here), never K1 or K1e, and the
+    observation through K2 with each env's floor.
+    (``test_torch_staged_dr.py`` holds the step against JAX.)"""
     _, penv = envs
     st = penv.reset(2)
     models = randomize_model(penv.model, torch.Generator().manual_seed(0), 2)
     models = dataclasses.replace(
-        models, jnt_range=penv.model.jnt_range.expand(2, -1, -1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        penv.step_autoreset_batch(st, torch.zeros((2, 2)), models=models,
-                                  base_model=penv.model)
+        models, jnt_range=penv.model.jnt_range.expand(2, -1, -1) * 0.5)
+    calls = []
+    for mod, name in ((k1, "step_fused"), (k2, "lidar"),
+                      (engine, "newton_solve")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=fn, **kw:
+                            calls.append(_n) or _f(*a, **kw))
+    new = penv.step_autoreset_batch(st, torch.zeros((2, 2)), models=models,
+                                    base_model=penv.model)
+    assert calls == ["newton_solve", "lidar", "lidar"], calls
+    assert bool(torch.isfinite(new.obs).all())

@@ -36,12 +36,14 @@ def test_port_imports_without_jax():
 def test_every_module_of_the_port_is_checked():
     """The import check walks the package: the modules of each slice are in
     it (the staged step, domain randomization, the Newton kernel, the
-    trainer, the geodesic fields, the off-policy learners)."""
+    trainer, the geodesic fields, the off-policy learners, the per-env
+    step's solver, raycast and sensors)."""
     mods = set(_modules())
     for m in ("envs.domain_randomization", "envs.geodesic",
               "physics.batchlast",
               "physics.collision", "physics.constraint",
               "physics.linalg_small", "physics.solver_batched",
+              "physics.solver", "physics.raycast", "physics.sensors",
               "ops.newton", "ops.step", "ops.lidar", "interop",
               "rl", "rl.config", "rl.networks", "rl.ppo", "rl.checkpoint",
               "rl.replay_buffer", "rl.sac", "rl.td3",

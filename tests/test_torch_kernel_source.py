@@ -16,8 +16,10 @@ qpos, xpos and xquat 1e-6; qvel 1e-5; qacc atol 1e-3 plus rtol 1e-4 (the
 error of an env scales with the largest accelerations of the solve, ~4e3
 on wheel dofs, and the dense loops sum in another order than the twin's
 pruned program); env slab
-1e-5, the goal angle through sin and cos; K2 1e-6.  K1e takes the same
-tolerances on parameters with a +-2 cm floor offset; K3 is held at qacc atol
+1e-5, the goal angle through sin and cos; K2 1e-6, also with a per-env
+floor.  K1e takes the same tolerances on parameters with a +-2 cm floor
+offset; the plain physics step (``<0,0,0>``, K1 and K1e) the same as the
+others; K3 is held at qacc atol
 1e-3 plus rtol 1e-4 on the system of 3 compat-path steps.
 """
 import ctypes
@@ -36,7 +38,7 @@ from mujoco_playground_tpu_torch.ops import build
 from mujoco_playground_tpu_torch.ops import lidar as k2
 from mujoco_playground_tpu_torch.ops import newton as k3
 from mujoco_playground_tpu_torch.ops import step as k1
-from mujoco_playground_tpu_torch.physics import engine
+from mujoco_playground_tpu_torch.physics import batchlast, engine, mathutil
 
 B = 8
 TOL = dict(qpos=(1e-6, 0), qvel=(1e-5, 0), xpos=(1e-6, 0), xquat=(1e-6, 0),
@@ -92,10 +94,13 @@ def _dr_params(env):
                          [(True, True, False, False),
                           (False, False, True, False),
                           (True, False, False, False),
+                          (False, False, False, False),
                           (True, True, False, True),
-                          (True, False, False, True)],
+                          (True, False, False, True),
+                          (False, False, False, True)],
                          ids=["True-False", "False-True", "env-nofresh",
-                              "dr-fresh", "dr-nofresh"])
+                              "physics", "dr-fresh", "dr-nofresh",
+                              "dr-physics"])
 def test_step_kernel_source_matches_plain_twin(host_libs, env, with_env,
                                                with_fresh, ws_compare, dr):
     lib = host_libs["step_kernel_dr.cu" if dr else "step_kernel.cu"]
@@ -156,7 +161,7 @@ def test_step_kernel_source_wall_contacts(host_libs, env, dr):
 
 @pytest.mark.parametrize("with_env,with_fresh,ws_compare",
                          [(True, True, True), (True, False, True),
-                          (False, False, False)])
+                          (False, True, False)])
 def test_step_kernel_refuses_uncompiled_variants(host_libs, env, with_env,
                                                  with_fresh, ws_compare):
     """Only the flag sets the port calls are compiled; the wrappers and the
@@ -182,11 +187,11 @@ def test_step_kernel_refuses_uncompiled_variants(host_libs, env, with_env,
 
 @pytest.mark.parametrize("with_env,with_fresh,ws_compare",
                          [(False, False, True), (True, True, True),
-                          (False, False, False)])
+                          (False, True, False)])
 def test_dr_step_kernel_refuses_uncompiled_variants(host_libs, env, with_env,
                                                     with_fresh, ws_compare):
-    """K1e compiles only the two env-step flag sets, and needs its
-    parameters."""
+    """K1e compiles only the two env-step flag sets and the plain physics
+    step, and needs its parameters."""
     model = env.model
     st = env.reset(B)
     q, v = _rows(st.physics.qpos), _rows(st.physics.qvel)
@@ -314,6 +319,33 @@ def test_lidar_kernel_source_matches_plain_twin(host_libs, env):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
     assert (want > 0).any()
     assert k2.lidar.launches == 0
+
+
+def test_lidar_kernel_source_per_env_floor(host_libs, env):
+    """K2 with each env's floor height (the default randomization's floors,
+    widened to +-2 cm) on frames pitched 8 degrees down, so that beams meet
+    the floor; the same launch with the model's floor differs."""
+    model = env.model
+    st = env.reset(B)
+    q = st.physics.qpos.clone()
+    half = np.deg2rad(8.0) / 2
+    pitch = torch.tensor([np.cos(half), 0.0, np.sin(half), 0.0])
+    q[:, 3:7] = mathutil.quat_mul(q[:, 3:7], pitch.expand(B, 4))
+    xpos, xquat = batchlast.fk_bl(model, q.T)
+    xpos = torch.cat(xpos).contiguous()
+    xquat = torch.cat(xquat).contiguous()
+    floor = randomize_model(model, torch.Generator().manual_seed(4), B,
+                            RandomizationConfig(floor_z_offset=(-0.02, 0.02))
+                            ).plane_z
+    lib = host_libs["lidar_kernel.cu"]
+    got = k2.launch_k2(lib, model, xpos, xquat, None, floor)
+    want = k2.lidar_plain(model, xpos, xquat, floor)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    base = k2.launch_k2(lib, model, xpos, xquat, None)
+    assert float((base - got).abs().max()) > 1e-3
+    assert k2.lidar.launches == k2.lidar.launches_floor == 0
+    with pytest.raises(ValueError, match="shape"):
+        k2.launch_k2(lib, model, xpos, xquat, None, floor[:-1])
 
 
 def test_lidar_kernel_source_no_hit_and_cutoff(host_libs, env):

@@ -20,7 +20,8 @@ geodesic shaping 10 and the compass; B=8).
   template's heading): every K1 call of the auto-reset has no fresh
   statics, K2 runs once a step, and a reset env's observed heading is its
   rotated spawn's.
-* Domain randomization with heading noise raises, naming the ROADMAP item.
+* Domain randomization with heading noise steps: K1e without the fused
+  spawn scan, then K2 with each env's floor on the merged state.
 """
 import copy
 import dataclasses
@@ -167,9 +168,28 @@ def test_heading_noise_never_takes_the_fused_spawn_scan(envs, monkeypatch):
     assert calls == [("K1", None), ("K2", None)] * 2, calls
 
 
-def test_domain_randomization_with_heading_noise_raises(envs):
+def test_domain_randomization_with_heading_noise_steps(envs, monkeypatch):
+    """DR with heading noise: K1e without the fused spawn scan, then the
+    merged state observed through K2 with each env's floor; a reset env's
+    observed heading is its rotated spawn's.  (``test_torch_dr_observe.py``
+    holds the same against JAX.)"""
     _, penv = envs
-    dr = DomainRandomizedEnv(penv, 2, torch.Generator().manual_seed(0))
+    dr = DomainRandomizedEnv(penv, 4, torch.Generator().manual_seed(0))
+    calls = []
+    step_fused, lidar = k1.step_fused, k2.lidar
+    monkeypatch.setattr(k1, "step_fused", lambda *a, **kw: calls.append(
+        ("K1e" if kw.get("dr_params") is not None else "K1",
+         kw.get("fresh_statics"))) or step_fused(*a, **kw))
+    monkeypatch.setattr(k2, "lidar", lambda *a, **kw: calls.append(
+        ("K2", None if len(a) < 4 else a[3])) or lidar(*a, **kw))
     s = dr.reset()
-    with pytest.raises(NotImplementedError, match="Staged DR fallback"):
-        dr.step_autoreset_batch(s, torch.zeros((2, 2)))
+    s = s.replace(steps=torch.full_like(s.steps,
+                                        penv.config.max_episode_steps - 1))
+    calls.clear()
+    s = dr.step_autoreset_batch(s, torch.zeros((4, 2)))
+    assert [c[0] for c in calls] == ["K1e", "K2"] and calls[0][1] is None
+    assert calls[1][1] is dr.models.plane_z
+    assert bool(s.done.all()) and bool(torch.isfinite(s.obs).all())
+    yaw = quat_to_yaw(s.physics.xquat[:, 1])
+    np.testing.assert_allclose(s.obs[:, HEADING].numpy(), yaw.numpy(),
+                               atol=1e-6)

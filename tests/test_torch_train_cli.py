@@ -17,7 +17,9 @@ the PPO parts of ``test_train_cli.py``, run on the port with
   generator untouched;
 * the random baseline finishes its episodes;
 * the CLI: trains and evaluates with --device cpu (PPO, and a few
-  iterations of SAC and TD3), and needs a card without it.
+  iterations of SAC and TD3), and needs a card without it;
+* --reference-compat trains, its reward per step that of the reference's
+  open floor.
 """
 import json
 import math
@@ -281,7 +283,20 @@ def test_cli_off_policy_trains_on_cpu(algo, tmp_path, capsys):
     assert "device: cpu" in out and f"[{algo}] eval" in out
 
 
-def test_cli_unported_env_knob_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--algo", "ppo", "--device", "cpu", "--reference-compat",
-              "--log-dir", str(tmp_path)])
+def test_cli_reference_compat_trains(tmp_path):
+    """--reference-compat (delayed obs and lidar aliasing) trains on the
+    open floor: one iteration of 8 envs x 4 steps and the evaluation.
+    There every no-hit beam reads -1 and counts as a collision, so each
+    step pays the -50 penalty: the reward per step lies in [-52, -49], the
+    bound ``test_env_parity.py`` holds the JAX env to."""
+    env = build_env(RLConfig(reference_compat=True), "cpu")
+    assert env.config.reference_delayed_obs
+    assert env.config.reference_lidar_aliasing
+    main(["--algo", "ppo", "--device", "cpu", "--reference-compat",
+          "--num-envs", "8", "--unroll", "4", "--minibatches", "2",
+          "--timesteps", "32", "--max-episode-steps", "10",
+          "--eval-episodes", "2", "--log-dir", str(tmp_path)])
+    assert _ckpt_steps(str(tmp_path)) == [32]
+    rewards = [x["mean_reward"] for x in _metric_lines(str(tmp_path))
+               if "mean_reward" in x]
+    assert rewards and all(-52.0 <= r <= -49.0 for r in rewards), rewards
