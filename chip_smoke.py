@@ -80,7 +80,26 @@ ls_iterations=3)`` with uniform random actions:
   through ``AckermannEnv.step`` (plain PyTorch on the card) for 20 steps,
   each step held against ``engine.staged_step`` (K3) on the same envs as a
   batch, and the same envs' per-env step on the CPU held against the
-  card's.
+  card's;
+* the interop and tooling layer (``tooling_phase``): which of gymnasium,
+  gymnasium_robotics, mujoco, matplotlib, pygame and glfw the machine
+  has, and the Gym wrappers' base classes; ``GymVectorAckermannEnv`` over
+  the main path's env at 16384 envs for 200 steps of seeded numpy
+  actions (K1 200 and K2 1 exactly; env-steps/s by host clock beside the
+  main path's, and the share of a step its device-to-host copies take),
+  then the same steps in lockstep with ``step_autoreset_batch`` on the
+  same env and seed (numpy outputs of the contract's shapes, final_obs
+  and its masks exactly where an env ends, bitwise equal; one more step
+  with the even envs truncating); ``GymAckermannEnv`` for 20 steps (a
+  second ``reset(seed=3)`` repeats the obs bitwise); synthetic SB3 PPO
+  (64x64), SAC (256x256, ``log_ent_coef``) and TD3 (400x300) zips
+  loaded on the card and on the CPU, each module's outputs against an
+  SB3-layout forward and the CPU's, and the PPO policy evaluated at 4096
+  envs for 200 steps (K1 200, K2 1); both spawners over the four
+  PointMazes, maze_flat and the open floor, 10 per-env steps each,
+  finite; ``main_sim.main(["--headless", "--steps", "100"])`` on the card
+  against the CPU, its odometry printout finite, its steps/s against
+  the 500 Hz pace.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -164,6 +183,29 @@ REWARD_BOUNDS = (-52.0, -49.0)
 PER_ENV_B = 8
 PER_ENV_STEPS = 20
 PER_ENV_TOL = dict(qpos=1e-6, qvel=1e-4, cpu=1e-4)
+# the tooling phase: the Gym vector env over the main path's env and width
+# (K1 once a step, K2 at reset; the trajectory bitwise equal to
+# step_autoreset_batch's on the same env, seed and actions), the single
+# Gym env, the SB3 loaders with a 200-step PPO evaluation at 4096 envs, the
+# spawners and main_sim --headless.  SB3_TOL: the loaded modules against an
+# SB3-layout forward of the same weights on the card (the same Linear
+# products: last-ulp at most), and the card's outputs against the CPU's
+# (other BLAS summation orders over up to 400 inputs; the outputs reach
+# ~10).  SIM_TOL: main_sim's final state on the card against the CPU's
+# after SIM_STEPS steps, PER_ENV_TOL's card-against-CPU bound (the same
+# per-env program, other libraries' rounding: per_env_phase reads 2.4e-6
+# in qvel over 20 steps, |qvel| reaching ~13 on the wheels).
+GYM_B = B_MAIN
+GYM_STEPS = STEPS
+GYM_SINGLE_STEPS = 20
+OPTIONAL = ("gymnasium", "gymnasium_robotics", "mujoco", "matplotlib",
+            "pygame", "glfw")
+SB3_EVAL_B = 4096
+SB3_EVAL_STEPS = 200
+SB3_TOL = dict(layout=1e-5, cpu=1e-4)
+SPAWN_STEPS = 10
+SIM_STEPS = 100
+SIM_TOL = PER_ENV_TOL["cpu"]
 # the solved phase: README.md's solved recipe (256x256 towers, obs 81, the
 # geodesic shaping and the goal compass, gamma 0.995, 6000-step episodes)
 # at 4096 umaze envs, as written and with a random spawn heading; then the
@@ -1403,6 +1445,394 @@ def per_env_phase(card, dev, env):
     print(f"per-env phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def sb3_zip(path, policy_sd, pytorch_vars=None):
+    """A minimal Stable-Baselines3 checkpoint zip: policy.pth (and
+    pytorch_variables.pth) as torch.save writes them."""
+    import io
+    import zipfile
+    with zipfile.ZipFile(path, "w") as zf:
+        for member, sd in (("policy.pth", policy_sd),
+                           ("pytorch_variables.pth", pytorch_vars)):
+            if sd is not None:
+                buf = io.BytesIO()
+                torch.save(sd, buf)
+                zf.writestr(member, buf.getvalue())
+    return path
+
+
+def sb3_linear(sd, key, n_in, n_out, gen):
+    """An SB3 Linear's weight and bias drawn from gen, the weight with a
+    1/sqrt(fan_in) scale."""
+    sd[f"{key}.weight"] = torch.randn(n_out, n_in, generator=gen) * (
+        n_in ** -0.5)
+    sd[f"{key}.bias"] = torch.randn(n_out, generator=gen) * 0.1
+
+
+def sb3_layers(sd, prefix, dims, gen):
+    """SB3 Sequential Linear layers for dims (keys at stride 2: the
+    activations sit between)."""
+    for i in range(len(dims) - 1):
+        sb3_linear(sd, f"{prefix}.{2 * i}", dims[i], dims[i + 1], gen)
+
+
+def sb3_forward(x, sd, prefix, n, act, last=None):
+    """SB3's Sequential forward: n Linear layers, ``act`` between them,
+    ``last`` (if any) after the last."""
+    import torch.nn.functional as F
+    for i in range(n):
+        x = F.linear(x, sd[f"{prefix}.{2 * i}.weight"],
+                     sd[f"{prefix}.{2 * i}.bias"])
+        if i < n - 1:
+            x = act(x)
+    return x if last is None else last(x)
+
+
+def tooling_phase(card, dev, main_ms):
+    """The interop and tooling layer on the card (module docstring):
+    ``GymVectorAckermannEnv`` at the main path's width against
+    ``step_autoreset_batch``, ``GymAckermannEnv``, the SB3 loaders and a
+    PPO evaluation of a loaded policy, the spawners and ``main_sim``."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+
+    from mujoco_playground_tpu_torch import main_sim
+    from mujoco_playground_tpu_torch.core.controller import \
+        bicycle_cmd_vel_to_controls
+    from mujoco_playground_tpu_torch.envs import (gym_wrapper,
+                                                  make_ackermann_env, spawner)
+    from mujoco_playground_tpu_torch.physics import engine
+    from mujoco_playground_tpu_torch.rl import sac, sb3_import, td3
+    from mujoco_playground_tpu_torch.rl.evaluate import (deterministic_policy,
+                                                         evaluate_agent)
+    from mujoco_playground_tpu_torch.rl.networks import ActorCritic
+    t_phase = time.perf_counter()
+    present = [m for m in OPTIONAL if importlib.util.find_spec(m)]
+    print(f"tooling: optional packages on this machine: {present or 'none'};"
+          f" the Gym wrappers' bases: {gym_wrapper._BASE.__module__}."
+          f"{gym_wrapper._BASE.__qualname__}, "
+          f"{gym_wrapper._VBASE.__module__}."
+          f"{gym_wrapper._VBASE.__qualname__}")
+
+    # -- the Gym vector env at the main path's width -----------------------
+    # a timed run whose caller drops each step's arrays, as a training loop
+    # that consumes them does (a caller that keeps them all pays the host's
+    # page faults on fresh memory instead: PERF.md), then a checked run in
+    # lockstep with step_autoreset_batch on the same env, seed and actions
+    # (the env's own generator is seeded SEED as the wrapper's is)
+    env = make_ackermann_env("maze", "umaze", solver_iterations=4,
+                             ls_iterations=3, seed=SEED, device=dev)
+    venv = gym_wrapper.GymVectorAckermannEnv(GYM_B, env=env, seed=SEED)
+    rng = np.random.default_rng(SEED + 20)
+    actions = [rng.uniform(-1.0, 1.0, (GYM_B, 2)).astype(np.float32)
+               for _ in range(GYM_STEPS)]
+    to_host, host_s, timing = venv.to_host, [0.0], [False]
+
+    def timed_to_host(s):
+        # the device-to-host copies of a step, timed once the step's
+        # kernels are done (to_host waits for them at its first copy)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = to_host(s)
+        if timing[0]:
+            host_s[0] += time.perf_counter() - t
+        return out
+
+    venv.to_host = timed_to_host
+    reset_counts()
+    venv.reset(seed=SEED)
+    step_bytes = 0
+    for i, a in enumerate(actions):
+        if i == WARMUP:
+            timing[0] = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        obs, rew, term, trunc, info = venv.step(a)
+        if i >= WARMUP:
+            step_bytes += sum(x.nbytes for x in (obs, rew, term, trunc)) + (
+                sum(x.nbytes for x in info.values()
+                    if isinstance(x, np.ndarray)))
+    gym_s = time.perf_counter() - t0
+    counts = read_counts()
+    venv.to_host = to_host
+    if counts != {"K1": GYM_STEPS, "K1e": 0, "K2": 1, "K3": 0, "K2f": 0}:
+        fail(f"tooling: the Gym vector env launched {counts} in "
+             f"{GYM_STEPS} steps (K1 {GYM_STEPS} and K2 1 expected)")
+    obs0, _ = venv.reset(seed=SEED)
+    states = env.reset(GYM_B)
+    same = np.array_equal(states.obs.cpu().numpy(), obs0)
+    n_final = 0
+
+    def check_step(i, out, states):
+        """One step's outputs: numpy of the contract's shapes, final_obs
+        and its masks exactly where an env is done, and the bits of
+        step_autoreset_batch's state."""
+        obs, rew, term, trunc, info = out
+        arrays = [obs, rew, term, trunc, info["goal_distance"],
+                  info["collision"]]
+        if not all(isinstance(x, np.ndarray) for x in arrays):
+            fail(f"tooling: step {i} returned a non-numpy output")
+        if obs.shape != (GYM_B, env.obs_size) or obs.dtype != np.float32 \
+                or any(x.shape != (GYM_B,) for x in arrays[1:]):
+            fail(f"tooling: step {i} shapes {[x.shape for x in arrays]}")
+        if not np.isfinite(obs).all() or not np.isfinite(rew).all():
+            fail(f"tooling: step {i}: non-finite obs or reward")
+        done = term | trunc
+        if ("final_obs" in info) != bool(done.any()):
+            fail(f"tooling: step {i}: final_obs {'final_obs' in info} with "
+                 f"{int(done.sum())} envs done")
+        want = [states.obs, states.reward, states.terminated,
+                states.truncated, states.goal_distance, states.collision]
+        if done.any():
+            if (info["final_obs"].shape != obs.shape
+                    or not np.array_equal(info["_final_obs"], done)
+                    or not np.array_equal(info["_final_info"], done)):
+                fail(f"tooling: step {i}: final_obs or its masks are wrong")
+            arrays.append(info["final_obs"])
+            want.append(states.final_obs)
+        return bool(done.any()), all(
+            np.array_equal(g, w.cpu().numpy()) for g, w in zip(arrays, want))
+
+    for i, a in enumerate(actions):
+        out = venv.step(a)
+        states = env.step_autoreset_batch(states,
+                                          torch.from_numpy(a).to(dev))
+        ended, equal = check_step(i, out, states)
+        n_final += ended
+        same = same and equal
+    # one more step with the even envs one step from truncation, so that
+    # final_obs shows however many episodes the random run ended
+    last = env.config.max_episode_steps - 1
+    even = torch.arange(GYM_B, device=dev) % 2 == 0
+    states.steps[even] = last
+    venv._states.steps[even] = last
+    out = venv.step(actions[0])
+    states = env.step_autoreset_batch(states,
+                                      torch.from_numpy(actions[0]).to(dev))
+    ended, equal = check_step(GYM_STEPS, out, states)
+    if not (ended and (out[2] | out[3])[::2].all()):
+        fail("tooling: the truncating step ended no episode")
+    if not (same and equal):
+        fail("tooling: the Gym vector env's trajectory is not bitwise "
+             "step_autoreset_batch's")
+    n_timed = GYM_STEPS - WARMUP
+    gym_ms = gym_s / n_timed * 1e3
+    print(f"Gym vector env: B={GYM_B}, {GYM_STEPS} steps, launches "
+          f"{counts}, bitwise equal to step_autoreset_batch (final_obs on "
+          f"{n_final} of its {GYM_STEPS} steps and on a truncating step); "
+          f"{gym_ms:.4f} ms per step by host clock, "
+          f"{GYM_B * n_timed / gym_s:.0f} env-steps/s, against the main "
+          f"path's {main_ms:.4f} ms, {GYM_B / main_ms * 1e3:.0f} "
+          f"env-steps/s (CUDA events) in this call; device-to-host copies "
+          f"{host_s[0] / n_timed * 1e3:.4f} ms per step, "
+          f"{host_s[0] / gym_s:.3f} of a step, "
+          f"{step_bytes / n_timed / 1e6:.2f} MB per step "
+          f"({step_bytes / host_s[0] / 1e9:.2f} GB/s) ({card})")
+
+    # -- the single Gym env (the per-env step) ------------------------------
+    genv = gym_wrapper.GymAckermannEnv(env=env)
+    first, _ = genv.reset(seed=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GYM_SINGLE_STEPS):
+        obs, rew, term, trunc, info = genv.step(
+            rng.uniform(-1.0, 1.0, 2).astype(np.float32))
+    single_ms = (time.perf_counter() - t0) / GYM_SINGLE_STEPS * 1e3
+    again, _ = genv.reset(seed=3)
+    if not np.array_equal(first, again):
+        fail("tooling: GymAckermannEnv.reset(seed=3) did not repeat its obs")
+    if obs.shape != (env.obs_size,) or not np.isfinite(obs).all() \
+            or info["step"] != GYM_SINGLE_STEPS:
+        fail(f"tooling: the single Gym env's step: {obs.shape}, {info}")
+    print(f"Gym single env: {GYM_SINGLE_STEPS} steps, {single_ms:.1f} ms "
+          f"per step by host clock; reset(seed=3) repeats bitwise ({card})")
+
+    # -- the SB3 loaders, and a loaded PPO policy's evaluation -------------
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_sb3")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    n_obs, n_act = env.obs_size, 2
+    ppo_sd, sac_sd, td3_sd = {}, {}, {}
+    for prefix in ("mlp_extractor.policy_net", "mlp_extractor.value_net"):
+        sb3_layers(ppo_sd, prefix, (n_obs, 64, 64), gen)
+    sb3_linear(ppo_sd, "action_net", 64, n_act, gen)
+    sb3_linear(ppo_sd, "value_net", 64, 1, gen)
+    ppo_sd["log_std"] = torch.randn(n_act, generator=gen) * 0.3
+    sb3_layers(sac_sd, "actor.latent_pi", (n_obs, 256, 256), gen)
+    for k in ("actor.mu", "actor.log_std"):
+        sb3_linear(sac_sd, k, 256, n_act, gen)
+    for prefix in ("actor.mu", "actor_target.mu"):
+        sb3_layers(td3_sd, prefix, (n_obs, 400, 300, n_act), gen)
+    for sd, h in ((sac_sd, (256, 256)), (td3_sd, (400, 300))):
+        for crit in ("critic", "critic_target"):
+            for qf in ("qf0", "qf1"):
+                sb3_layers(sd, f"{crit}.{qf}", (n_obs + n_act,) + h + (1,),
+                           gen)
+    paths = {
+        "ppo": sb3_zip(os.path.join(work, "ppo.zip"), ppo_sd),
+        "sac": sb3_zip(os.path.join(work, "sac.zip"), sac_sd,
+                       {"log_ent_coef": torch.tensor([-1.3])}),
+        "td3": sb3_zip(os.path.join(work, "td3.zip"), td3_sd)}
+    obs = torch.from_numpy(obs0[:SB3_EVAL_B]).to(dev)
+    act = torch.rand((SB3_EVAL_B, n_act), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 31), device=dev) * 2 - 1
+
+    def loaded_outputs(device):
+        """Every loaded module's outputs on device, and the SB3-layout
+        forward of the same weights."""
+        x, a = obs.to(device), act.to(device)
+        sds = {k: {n: t.to(device) for n, t in v.items()}
+               for k, v in (("ppo", ppo_sd), ("sac", sac_sd),
+                            ("td3", td3_sd))}
+        out, ref = {}, {}
+        p = sb3_import.load_sb3_ppo_params(paths["ppo"], device=device)
+        net = ActorCritic(n_obs, n_act, hidden=(64, 64)).to(device)
+        net.load_state_dict(p["params"])
+        s = sb3_import.load_sb3_sac_params(paths["sac"], device=device)
+        t = sb3_import.load_sb3_td3_params(paths["td3"], device=device)
+        with torch.no_grad():
+            out["ppo mean"], _, out["ppo value"] = net(x)
+            sd = sds["ppo"]
+            ref["ppo mean"] = torch.nn.functional.linear(
+                sb3_forward(x, sd, "mlp_extractor.policy_net", 2,
+                            torch.tanh, torch.tanh),
+                sd["action_net.weight"], sd["action_net.bias"])
+            ref["ppo value"] = torch.nn.functional.linear(
+                sb3_forward(x, sd, "mlp_extractor.value_net", 2,
+                            torch.tanh, torch.tanh),
+                sd["value_net.weight"], sd["value_net.bias"])[:, 0]
+            actor = sac.TanhGaussianActor(n_obs, n_act,
+                                          hidden=s["hidden"]).to(device)
+            actor.load_state_dict(s["actor"])
+            out["sac mean"], out["sac log_std"] = actor(x)
+            sd = sds["sac"]
+            z = sb3_forward(x, sd, "actor.latent_pi", 2, torch.relu,
+                            torch.relu)
+            ref["sac mean"] = torch.nn.functional.linear(
+                z, sd["actor.mu.weight"], sd["actor.mu.bias"])
+            ref["sac log_std"] = torch.clamp(torch.nn.functional.linear(
+                z, sd["actor.log_std.weight"], sd["actor.log_std.bias"]),
+                -20.0, 2.0)
+            for algo, mod, q_hidden in (("sac", sac, s["hidden"]),
+                                        ("td3", td3, t["hidden"])):
+                loaded = s if algo == "sac" else t
+                for key, crit in (("q", "critic"),
+                                  ("q_target", "critic_target")):
+                    q = mod.TwinQ(n_obs, n_act, hidden=q_hidden).to(device)
+                    q.load_state_dict(loaded[key])
+                    for i, v in enumerate(q(x, a)):
+                        out[f"{algo} {key}{i + 1}"] = v
+                        ref[f"{algo} {key}{i + 1}"] = sb3_forward(
+                            torch.cat([x, a], -1), sds[algo],
+                            f"{crit}.qf{i}", 3, torch.relu)[:, 0]
+            for key, prefix in (("actor", "actor.mu"),
+                                ("actor_target", "actor_target.mu")):
+                actor = td3.DeterministicActor(
+                    n_obs, n_act, hidden=t["hidden"]).to(device)
+                actor.load_state_dict(t[key])
+                out[f"td3 {key}"] = actor(x)
+                ref[f"td3 {key}"] = sb3_forward(x, sds["td3"], prefix, 3,
+                                                torch.relu, torch.tanh)
+        if s["log_alpha"] is None or float(s["log_alpha"]) != float(
+                np.float32(-1.3)):
+            fail(f"tooling: SAC log_alpha {s['log_alpha']}")
+        return out, ref, net, (s["hidden"], t["hidden"])
+
+    card_out, card_ref, net, hidden = loaded_outputs(dev)
+    cpu_out, _, _, _ = loaded_outputs("cpu")
+    layout_err = max(float((card_out[k] - card_ref[k]).abs().max())
+                     for k in card_out)
+    cpu_err = max(float((card_out[k].cpu() - cpu_out[k]).abs().max())
+                  for k in card_out)
+    print(f"SB3 import: PPO 64x64, SAC {hidden[0]}, TD3 {hidden[1]} zips "
+          f"loaded on the card; {len(card_out)} outputs against an "
+          f"SB3-layout forward on the card: max |diff| {layout_err:.3e} "
+          f"(tol {SB3_TOL['layout']:g}); against the CPU's: {cpu_err:.3e} "
+          f"(tol {SB3_TOL['cpu']:g})")
+    if not (layout_err <= SB3_TOL["layout"] and cpu_err <= SB3_TOL["cpu"]):
+        fail("tooling: the loaded SB3 policies disagree")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = evaluate_agent(env, deterministic_policy(net),
+                           num_episodes=SB3_EVAL_B, max_steps=SB3_EVAL_STEPS,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED))
+    eval_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"SB3 PPO policy evaluated: {SB3_EVAL_B} envs x {SB3_EVAL_STEPS} "
+          f"steps in {eval_s:.2f} s, launches {counts}, mean return "
+          f"{stats['mean_return']:.3f}, success {stats['success_rate']:.4f}")
+    if counts != {"K1": SB3_EVAL_STEPS, "K1e": 0, "K2": 1, "K3": 0,
+                  "K2f": 0}:
+        fail(f"tooling: the SB3 evaluation launched {counts}")
+    if not all(math.isfinite(v) for v in stats.values()):
+        fail(f"tooling: the SB3 evaluation's stats {stats}")
+
+    # -- the spawners (the per-env step on the card) -----------------------
+    simple = spawner.SimpleMapSpawner(seed=SEED, device=dev)
+    maps = spawner.MapSpawner(seed=SEED, device=dev)
+    spawns = {"simple_floor": simple.load_random_environment()[:2]}
+    for _ in range(200):
+        model, state, name = maps.load_random_environment()
+        spawns.setdefault(name, (model, state))
+    if set(spawns) != {"simple_floor"} | {sc.name for sc in maps.scenes}:
+        fail(f"tooling: MapSpawner reached only {sorted(spawns)}")
+    spawn_s = 0.0
+    ctrl = bicycle_cmd_vel_to_controls(torch.tensor(0.5, device=dev),
+                                       torch.tensor(0.4, device=dev))
+    for name, (model, state) in spawns.items():
+        state = state.replace(ctrl=ctrl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPAWN_STEPS):
+            state = engine.step(model, state)
+        torch.cuda.synchronize()
+        spawn_s += time.perf_counter() - t0
+        if not all(bool(torch.isfinite(getattr(state, f)).all())
+                   for f in ("qpos", "qvel", "xpos", "xquat")):
+            fail(f"tooling: the {name} spawn stepped to a non-finite state")
+    print(f"spawners: {sorted(spawns)} each stepped {SPAWN_STEPS} per-env "
+          f"steps on the card, finite; "
+          f"{spawn_s / (len(spawns) * SPAWN_STEPS) * 1e3:.1f} ms per step "
+          f"({card})")
+
+    # -- main_sim --headless, on the card and on the CPU -------------------
+    argv = ["--headless", "--steps", str(SIM_STEPS), "--print-every", "50"]
+    finals, printed = {}, ""
+    for device in (str(dev), "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            finals[device] = main_sim.main(argv + ["--device", device])
+        if not printed:
+            sim_s = time.perf_counter() - t0
+            printed = buf.getvalue()
+    odom = re.findall(r"Odometry - Position: \[([^\]]*)\], Heading: (\S+), "
+                      r"Distance: (\S+)", printed)
+    values = [float(v) for pos, h, d in odom
+              for v in pos.split() + [h, d]]
+    if len(odom) != SIM_STEPS // 50 or not all(map(math.isfinite, values)):
+        fail(f"tooling: main_sim's odometry printout {odom}")
+    gap = {f: float((getattr(finals[str(dev)], f).cpu()
+                     - getattr(finals["cpu"], f)).abs().max())
+           for f in ("qpos", "qvel")}
+    print(f"main_sim --headless: {SIM_STEPS} steps on the card in "
+          f"{sim_s:.2f} s, {SIM_STEPS / sim_s:.2f} steps/s against the "
+          f"loop's 500 Hz pace ({500 * sim_s / SIM_STEPS:.1f}x slower); "
+          f"odometry finite (last: {odom[-1]}); final state against the "
+          f"CPU's: qpos {gap['qpos']:.3e}, qvel {gap['qvel']:.3e} (tol "
+          f"{SIM_TOL:g}) ({card})")
+    if max(gap.values()) > SIM_TOL:
+        fail(f"tooling: main_sim on the card against the CPU: {gap}")
+    loaded = [m for m in OPTIONAL if sys.modules.get(m) is not None]
+    print(f"tooling: optional packages imported: {loaded or 'none'}")
+    print(f"tooling phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _index_tree(tree, i):
     """Env i of a batched dataclass tree, as one env's (unbatched)."""
     if isinstance(tree, torch.Tensor):
@@ -2553,6 +2983,9 @@ def main():
 
     # -- phase 8: the per-env step -----------------------------------------
     per_env_phase(card, dev, env)
+
+    # -- phase 9: the interop and tooling layer ----------------------------
+    tooling_phase(card, dev, step_ms)
 
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",

@@ -9,5 +9,13 @@ from mujoco_playground_tpu_torch.envs.domain_randomization import (  # noqa
     RandomizationConfig,
     randomize_model,
 )
-from mujoco_playground_tpu_torch.envs.make_env import \
-    make_ackermann_env  # noqa: F401
+from mujoco_playground_tpu_torch.envs.make_env import (  # noqa: F401
+    list_available_mazes,
+    make_ackermann_env,
+)
+# gymnasium is optional: without it the wrappers keep their API on a plain
+# object base (gym_wrapper.py)
+from mujoco_playground_tpu_torch.envs.gym_wrapper import (  # noqa: F401
+    GymAckermannEnv,
+    GymVectorAckermannEnv,
+)

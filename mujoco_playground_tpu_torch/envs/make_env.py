@@ -1,13 +1,16 @@
-"""Env factory: ``make_ackermann_env`` (port of the JAX package's
-``envs/make_env.py``)."""
+"""Env factory: ``make_ackermann_env`` and ``list_available_mazes`` (port
+of the JAX package's ``envs/make_env.py``)."""
 from __future__ import annotations
 
 import torch
 
 from mujoco_playground_tpu_torch.envs.ackermann_env import (AckermannEnv,
                                                             EnvConfig)
-from mujoco_playground_tpu_torch.spec.scene import (maze_flat_scene,
-                                                    pointmaze_scene)
+from mujoco_playground_tpu_torch.spec.scene import (  # noqa: F401
+    list_available_mazes,
+    maze_flat_scene,
+    pointmaze_scene,
+)
 
 
 def make_ackermann_env(env_type: str = "maze",

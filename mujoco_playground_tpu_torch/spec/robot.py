@@ -354,6 +354,55 @@ def lidar_site_frames():
     return frames
 
 
+def ackermann_robot_legacy(floor: bool = True, n_beams: int = 36) -> ModelSpec:
+    """The older robot variant embedded in the maze_flat scene.
+
+    Differences from v2 (models/environments/ackermann_maze_flat.xml:141-304):
+    independent left/right steering position actuators + torque (`motor`)
+    rear drive with forcerange +-2, and a 36-beam lidar at 10-degree spacing.
+    Drive with core.controller.ackermann_cmd_vel_to_controls (the reference's
+    AckermannController, controller.py:27-78).
+    """
+    spec = ackermann_robot_v2(floor=floor)
+    spec.name = "ackermann_robot_legacy"
+    # lidar: n_beams at even spacing (reference uses explicit zaxis sites at
+    # 10-degree spacing; same geometry)
+    lidar_body = spec.body("lidar_360")
+    lidar_body.sites = []
+    base_quat = quat_from_axis_angle((0.0, 1.0, 0.0), math.pi / 2)
+    step = 360.0 / n_beams
+    for i in range(n_beams):
+        ang = math.radians(step * i)
+        rz = quat_from_axis_angle((0.0, 0.0, 1.0), ang)
+        lidar_body.sites.append(SiteSpec(
+            name=f"rf-{i:02d}",
+            pos=(LIDAR_RADIUS * math.cos(ang), LIDAR_RADIUS * math.sin(ang),
+                 0.0),
+            quat=quat_mul_np(rz, base_quat)))
+    # actuators: independent steering + torque rear drive
+    spec.actuators = [
+        ActuatorSpec.position("front_steer_left", "front_left_steer",
+                              kp=40.0, kv=6.0, ctrlrange=(-0.61, 0.61),
+                              forcerange=(-2.0, 2.0)),
+        ActuatorSpec.position("front_steer_right", "front_right_steer",
+                              kp=40.0, kv=6.0, ctrlrange=(-0.61, 0.61),
+                              forcerange=(-2.0, 2.0)),
+        ActuatorSpec.motor("rear_left_drive", "rear_left_wheel",
+                           forcerange=(-2.0, 2.0)),
+        ActuatorSpec.motor("rear_right_drive", "rear_right_wheel",
+                           forcerange=(-2.0, 2.0)),
+    ]
+    # no steering-coupling equality (independent steering)
+    spec.equalities = []
+    # sensors: keep encoders, swap rangefinders for the n_beams set
+    spec.sensors = [s for s in spec.sensors if s.type != "rangefinder"]
+    for i in range(n_beams):
+        spec.sensors.append(SensorSpec(
+            f"lidar-{i:02d}", "rangefinder", f"rf-{i:02d}",
+            cutoff=LIDAR_CUTOFF))
+    return spec
+
+
 def ackermann_robot_v2(floor: bool = True) -> ModelSpec:
     """Build the Ackermann robot spec (optionally with the 40x40 m floor)."""
     spec = ModelSpec(name="ackermann_robot", option=OptionSpec(

@@ -187,6 +187,29 @@ def normalize_maze_map(maze_map) -> np.ndarray:
     return np.asarray(rows, dtype=int)
 
 
+def registry_maze_map(maze_id: str):
+    """Fetch the cell grid for ANY registered PointMaze env id.
+
+    The reference creates the full gym env and steals its generated XML
+    (src/rl/envs/ackermann_gymnasium_maze_env.py:84-98); here only the
+    layout *data* is read from the registry spec — no env, no XML.
+    gymnasium and gymnasium_robotics are imported here, on first use.
+    """
+    import gymnasium as gym
+    import gymnasium_robotics  # noqa: F401  (registers the PointMaze ids)
+    try:
+        spec = gym.spec(maze_id)
+    except Exception as e:
+        raise KeyError(
+            f"maze id {maze_id!r} not in the transcribed maps nor the "
+            f"gymnasium registry") from e
+    maze_map = spec.kwargs.get("maze_map")
+    if maze_map is None:
+        raise KeyError(f"{maze_id!r} is registered but has no maze_map kwarg "
+                       f"(not a PointMaze env?)")
+    return maze_map
+
+
 def pointmaze_scene(maze_id: str = "PointMaze_UMaze-v3",
                     floor_z: float = -0.5,
                     maze_height: float = 0.4,
@@ -200,8 +223,10 @@ def pointmaze_scene(maze_id: str = "PointMaze_UMaze-v3",
     half-height).  Cell (i, j) of the map is centered at
     (x_center - ...), matching gymnasium_robotics's cell_xy convention.
 
-    ``maze_id`` is one of the four transcribed PointMaze maps (or its short
-    alias); ``maze_map`` overrides with an explicit cell grid (any
+    ``maze_id`` may be any registered PointMaze env id: the four transcribed
+    maps (and their short aliases) resolve locally, anything else is
+    fetched from the gymnasium registry (``registry_maze_map``).
+    ``maze_map`` overrides with an explicit cell grid (any
     gymnasium_robotics-style map).
     """
     maze_id = MAZE_ALIASES.get(maze_id, maze_id)
@@ -210,8 +235,7 @@ def pointmaze_scene(maze_id: str = "PointMaze_UMaze-v3",
     elif maze_id in POINTMAZE_MAPS:
         grid = np.asarray(POINTMAZE_MAPS[maze_id])
     else:
-        raise KeyError(f"maze id {maze_id!r} is not a transcribed PointMaze "
-                       f"map (known: {sorted(POINTMAZE_MAPS)})")
+        grid = normalize_maze_map(registry_maze_map(maze_id))
     rows, cols = grid.shape
     x_center = cols / 2 * size_scaling
     y_center = rows / 2 * size_scaling

@@ -98,3 +98,40 @@ def test_shifted_ranges_bind_the_outer_envs():
     outside = (lo > 0) | (hi < 0)
     assert bool(outside[0]) and bool(outside[-1])
     assert not bool(outside[3:5].any())
+
+
+def test_sb3_helpers_write_what_the_loaders_read(tmp_path):
+    """The tooling phase's synthetic SB3 zip: the PPO loader reads it back
+    bitwise, and the SB3-layout forward equals the loaded ActorCritic."""
+    import torch.nn.functional as F
+
+    from mujoco_playground_tpu_torch.rl import sb3_import
+    from mujoco_playground_tpu_torch.rl.networks import ActorCritic
+    gen = torch.Generator().manual_seed(0)
+    sd = {}
+    for prefix in ("mlp_extractor.policy_net", "mlp_extractor.value_net"):
+        chip_smoke.sb3_layers(sd, prefix, (79, 64, 64), gen)
+    chip_smoke.sb3_linear(sd, "action_net", 64, 2, gen)
+    chip_smoke.sb3_linear(sd, "value_net", 64, 1, gen)
+    sd["log_std"] = torch.zeros(2)
+    path = chip_smoke.sb3_zip(str(tmp_path / "ppo.zip"), sd)
+    net = ActorCritic(79, 2)
+    net.load_state_dict(sb3_import.load_sb3_ppo_params(
+        path, device="cpu")["params"])
+    x = torch.randn(4, 79, generator=gen)
+    with torch.no_grad():
+        mean, _, _ = net(x)
+        want = F.linear(chip_smoke.sb3_forward(
+            x, sd, "mlp_extractor.policy_net", 2, torch.tanh, torch.tanh),
+            sd["action_net.weight"], sd["action_net.bias"])
+    torch.testing.assert_close(mean, want, rtol=0, atol=1e-6)
+
+
+def test_chip_smoke_imports_no_optional_package():
+    """The chip machine has none of gymnasium, gymnasium_robotics, mujoco,
+    matplotlib, pygame or glfw: chip_smoke.py imports none of them (the
+    port's optional imports fall back without them)."""
+    import re
+    src = (ROOT / "chip_smoke.py").read_text()
+    names = "|".join(chip_smoke.OPTIONAL)
+    assert not re.findall(rf"^\s*(import|from)\s+({names})\b", src, re.M)

@@ -37,7 +37,7 @@ def test_every_module_of_the_port_is_checked():
     """The import check walks the package: the modules of each slice are in
     it (the staged step, domain randomization, the Newton kernel, the
     trainer, the geodesic fields, the off-policy learners, the per-env
-    step's solver, raycast and sensors)."""
+    step's solver, raycast and sensors, the interop and tooling layer)."""
     mods = set(_modules())
     for m in ("envs.domain_randomization", "envs.geodesic",
               "physics.batchlast",
@@ -48,7 +48,11 @@ def test_every_module_of_the_port_is_checked():
               "rl", "rl.config", "rl.networks", "rl.ppo", "rl.checkpoint",
               "rl.replay_buffer", "rl.sac", "rl.td3",
               "rl.evaluate", "rl.random_policy", "rl.train", "rl.utils",
-              "utils", "utils.logging", "utils.profiler"):
+              "utils", "utils.logging", "utils.profiler",
+              "core.cmd_vel", "teleop", "teleop.keyboard",
+              "teleop.joystick", "spec.mjcf", "envs.spawner",
+              "envs.gym_wrapper", "main_sim", "utils.visualize",
+              "rl.sb3_import"):
         assert f"mujoco_playground_tpu_torch.{m}" in mods, m
 
 
@@ -70,3 +74,29 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     env = make_ackermann_env("maze", "umaze", device="cpu",
                              solver_iterations=4, ls_iterations=3)
     assert env.model.device.type == "cpu"
+
+
+def _tooling_entry_points():
+    from mujoco_playground_tpu_torch import main_sim
+    from mujoco_playground_tpu_torch.envs import gym_wrapper, spawner
+    return {
+        "GymAckermannEnv": lambda: gym_wrapper.GymAckermannEnv(
+            maze_id="umaze"),
+        "GymVectorAckermannEnv": lambda: gym_wrapper.GymVectorAckermannEnv(
+            4, maze_id="umaze"),
+        "SimpleMapSpawner": spawner.SimpleMapSpawner,
+        "MapSpawner": spawner.MapSpawner,
+        "main_sim": lambda: main_sim.main(["--headless", "--steps", "1"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["GymAckermannEnv", "GymVectorAckermannEnv",
+                                  "MapSpawner", "SimpleMapSpawner",
+                                  "main_sim"])
+def test_tooling_entry_points_need_cuda_unless_asked_for_cpu(name):
+    """The wrappers, the spawners and the interactive sim default to the
+    card as the envs do, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _tooling_entry_points()[name]()
