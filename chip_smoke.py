@@ -27,6 +27,27 @@ ls_iterations=3)`` with uniform random actions:
   the default manifolds with per-env joint ranges (20 steps, K3 every
   step); path A with ``spawn_heading_noise`` (50 steps: K1e
   ``<1,0,0,dr>`` and K2 with each env's floor once a step);
+* the imported robot (``import_phase``): ``ackermann_robot_v2`` exported
+  with ``spec.mjcf.to_mjcf``, imported back with
+  ``spec.mjcf_import.from_mjcf`` and compiled with the umaze scene at
+  solver 4/3 beside the hand spec's model: the leaves that differ (only
+  the chassis hulls may, which the export writes as their boxes; every
+  other float32 leaf within one ulp), then 50 steps of the main path's
+  16384 reset states through ``engine.step_batch`` with each model and the
+  same ctrl (K1 ``<0,0,0>`` exactly 100 times), the imported model's
+  states held against the hand spec's with K1's tolerances, and each
+  model's ms per step;
+* the batch-last assembly (``constraint_bl_phase``): path B's last states
+  stepped 20 times through the staged step with the rows assembled in K3's
+  own layout (``constraint_bl.make_efc_bl``, K3 with ``pre_transposed``;
+  its launches counted apart, exactly 20); on the same states K3 in the
+  kernel layout held bitwise against K3 row-major on the same arrays
+  moved to row-major, against its twin (``check_k3``, ``set_aside``), and
+  against K3 on the staged step's own assembly (the two assemblies' arrays
+  within ``BL_ROWS_TOL``, qacc with ``check_k3``'s rules); a second launch
+  repeats the bits; each assembly with K3 timed by events and by the
+  profiler's device time, K3 alone in each layout by events and a CUDA
+  graph (A B B A), with both instantiations' ptxas lines and occupancy;
 * the trainer: ``rl.train.main`` with the README's PPO recipe at 4096
   umaze envs (``--algo ppo --maze umaze --num-envs 4096 --normalize
   --anneal-lr``) for 3 iterations, K1 on every rollout and evaluation step
@@ -198,6 +219,33 @@ PER_ENV_TOL = dict(qpos=1e-6, qvel=1e-4, cpu=1e-4)
 GYM_B = B_MAIN
 GYM_STEPS = STEPS
 GYM_SINGLE_STEPS = 20
+# the import phase: ackermann_robot_v2 through to_mjcf -> from_mjcf ->
+# make_model (umaze, solver 4/3) beside the hand spec's model.  Every
+# float32 leaf of the same shape within IMPORT_ULPS ulps of the hand
+# spec's (the float64 compile rounds both alike: bitwise expected); the
+# leaves that may differ otherwise are the chassis hulls (to_mjcf writes
+# each chassis mesh proxy as its box, so the imported hulls are the boxes'
+# 8 corners, which K1 takes padded).  Both models step the main path's
+# 16384 reset states IMPORT_STEPS times through K1 <0,0,0> with the same
+# ctrl, held against each other with K1's tolerances (check_k1): no
+# chassis touches anything from a reset in 50 steps, so the same bits are
+# expected.
+IMPORT_STEPS = 50
+IMPORT_ULPS = 1
+IMPORT_HULL_FIELDS = ("chassis_hull_verts", "chassis_hull_quadrants",
+                      "chassis_hull_bias", "chassis_hull_faces")
+# the batch-last assembly phase: path B's last states (compat manifolds,
+# 16384 envs) stepped BL_STEPS times through the staged step with the rows
+# assembled in K3's layout (constraint_bl.make_efc_bl, K3 with
+# pre_transposed); on the same states K3 in the kernel layout is held
+# bitwise against K3 row-major on the same arrays moved to row-major,
+# against its twin with check_k3's rules, and against K3 on the staged
+# step's own assembly (engine.newton_inputs) with check_k3's tolerance and
+# set_aside rule (the two assemblies sum in other orders: c_aref parts by
+# ~1 ulp).  BL_ROWS_TOL: the two assemblies' arrays, (atol, rtol) against
+# each array's largest |value| (the Jacobians ~1, c_aref ~1e3-1e4).
+BL_STEPS = 20
+BL_ROWS_TOL = (1e-6, 1e-6)
 OPTIONAL = ("gymnasium", "gymnasium_robotics", "mujoco", "matplotlib",
             "pygame", "glfw")
 SB3_EVAL_B = 4096
@@ -772,6 +820,7 @@ def reset_counts():
     k1.step_fused.by_variant.clear()
     k2.lidar.launches = k2.lidar.launches_floor = 0
     k3.newton_solve.launches = 0
+    k3.newton_solve.launches_kernel_layout = 0
 
 
 def read_counts():
@@ -831,6 +880,250 @@ def _tree_diff(a, b):
         return 0.0, a == b
     return (max((d for d, _ in out), default=0.0),
             all(e for _, e in out))
+
+
+def ulp_distance(a, b):
+    """Per element, the count of float32 values from a to b (0: the same
+    bits; +0 and -0 are 0 apart)."""
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def model_leaf_diff(a, b):
+    """The fields of two compiled models that differ, as {name: what}:
+    "value" for a static field, "shape (..) vs (..)" for arrays of other
+    shapes, else (max |a - b|, max ulps apart)."""
+    from mujoco_playground_tpu_torch.physics.model import (ARRAY_FIELDS,
+                                                           STATIC_FIELDS)
+    out = {}
+    for name in STATIC_FIELDS:
+        if getattr(a, name) != getattr(b, name):
+            out[name] = "value"
+    for name in ARRAY_FIELDS:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape:
+            out[name] = f"shape {tuple(x.shape)} vs {tuple(y.shape)}"
+        elif not torch.equal(x, y):
+            out[name] = (float((x.double() - y.double()).abs().max()),
+                         int(ulp_distance(x, y).max()))
+    return out
+
+
+def k3_to_rows(args):
+    """K3's arguments in the kernel layout moved to row-major (G, Jn, Jt1,
+    Jt2, c_aref), contiguous: the same values at other addresses."""
+    return tuple(torch.movedim(t, 0, 1).contiguous()
+                 if i in (2, 8, 9, 10, 11) else t
+                 for i, t in enumerate(args))
+
+
+def profiled_device_ms(fn, n):
+    """Device ms per call of fn over n calls: the kernels' device time in a
+    torch.profiler trace (for work a CUDA graph cannot capture, such as
+    host-to-device copies of pageable constants)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k[0] for k in kernel_times(prof.key_averages())) / n / 1e3
+
+
+def import_phase(card, dev, env, reset_states):
+    """The imported robot (module docstring) through K1 at the main path's
+    width, beside the hand spec's model."""
+    from mujoco_playground_tpu_torch.physics import engine
+    from mujoco_playground_tpu_torch.physics.model import make_model
+    from mujoco_playground_tpu_torch.spec import mjcf, mjcf_import, robot
+    t = time.perf_counter()
+    hand = robot.ackermann_robot_v2()
+    xml = mjcf.to_mjcf(hand)
+    spec = mjcf_import.from_mjcf(xml)
+    kw = dict(solver_iterations=4, ls_iterations=3, device=dev)
+    m_i = make_model(spec, env.scene, **kw)
+    m_h = make_model(hand, env.scene, **kw)
+    print(f"import: to_mjcf ({len(xml)} chars) -> from_mjcf -> make_model "
+          f"in {time.perf_counter() - t:.2f} s; {m_i.nbody} bodies, "
+          f"{m_i.nv} dofs, {m_i.nsite} sites, {m_i.nu} actuators")
+    diff = model_leaf_diff(m_i, m_h)
+    print(f"import: leaves that differ from the hand spec's model "
+          f"(max |diff|, max ulps): {diff or 'none'}")
+    bad = [n for n, d in diff.items() if n not in IMPORT_HULL_FIELDS
+           and not (isinstance(d, tuple) and d[1] <= IMPORT_ULPS)]
+    if bad:
+        fail(f"import: leaves beyond {IMPORT_ULPS} ulp of the hand spec's "
+             f"(other than the chassis hulls): {bad}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ctrls = [torch.rand((B_MAIN, m_h.nu), generator=gen, device=dev) * 2 - 1
+             for _ in range(IMPORT_STEPS)]
+    start = reset_states.physics
+    out, ms = {}, {}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    for name, model in (("imported", m_i), ("hand", m_h)):
+        s = start
+        torch.cuda.synchronize()
+        t0.record()
+        for c in ctrls:
+            s = engine.step_batch(model, s.replace(ctrl=c))
+        t1.record()
+        torch.cuda.synchronize()
+        out[name], ms[name] = s, t0.elapsed_time(t1) / IMPORT_STEPS
+    counts, variants = read_counts(), read_variants()
+    want = 2 * IMPORT_STEPS
+    print(f"import: B={B_MAIN}, {IMPORT_STEPS} steps of each model "
+          f"through engine.step_batch, launches {counts} by flag set "
+          f"{variants}; {ms['imported']:.4f} ms per step (imported), "
+          f"{ms['hand']:.4f} ms (hand spec) ({card})")
+    if counts != {"K1": want, "K1e": 0, "K2": 0, "K3": 0, "K2f": 0} or \
+            variants != {PLAIN: want}:
+        fail(f"import: launches {counts} {variants}, expected K1 <0,0,0> "
+             f"{want} ({IMPORT_STEPS} per model)")
+    failures = []
+    views = {k: [s.qpos.T, s.qvel.T, s.xpos.reshape(B_MAIN, -1).T,
+                 s.xquat.reshape(B_MAIN, -1).T, s.qacc_warmstart.T]
+             for k, s in out.items()}
+    check_k1(f"imported vs hand spec, {IMPORT_STEPS} steps B={B_MAIN}",
+             views["imported"], views["hand"], m_h, failures)
+    same = all(torch.equal(x, y) for x, y in zip(views["imported"],
+                                                 views["hand"]))
+    moved = float((out["hand"].qpos[:, :2] - start.qpos[:, :2]).norm(
+        dim=-1).max())
+    print(f"import: the imported model's states are bitwise the hand "
+          f"spec's: {same}; robots moved up to {moved:.4f} m")
+    if failures or not bool(torch.isfinite(out["imported"].qvel).all()):
+        fail(f"import: the imported model parts from the hand spec's: "
+             f"{failures}")
+    return dict(ms=ms, counts=counts)
+
+
+def constraint_bl_phase(card, dev, cenv, cstates, logs):
+    """The batch-last assembly in K3's layout (module docstring) on path
+    B's last states.  Returns the numbers of the kernel-layout K3's entry
+    of the kernels line."""
+    from mujoco_playground_tpu_torch.ops import build
+    from mujoco_playground_tpu_torch.ops import newton as k3
+    from mujoco_playground_tpu_torch.physics import engine
+    model, cph = cenv.model, cstates.physics
+    lib = build.load("newton_kernel.cu")
+    for row in ptxas_report({"newton_kernel.cu":
+                             logs.get("newton_kernel.cu", "")}):
+        print(f"  ptxas {row}")
+    for name in ("k3_occupancy", "k3_occupancy_kernel_layout"):
+        print(f"  occupancy newton_kernel.cu {name}: "
+              f"{occupancy_line(lib, name)}")
+    # the path: staged steps with the rows assembled in K3's layout
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    s = cph
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(BL_STEPS):
+        s = engine.staged_step(model, s, kernel_layout=True)
+    t1.record()
+    torch.cuda.synchronize()
+    counts, launches = read_counts(), k3.newton_solve.launches_kernel_layout
+    step_ms = t0.elapsed_time(t1) / BL_STEPS
+    print(f"batch-last assembly: B={B_MAIN}, {BL_STEPS} staged steps from "
+          f"path B's last states, K3 kernel layout {launches}, launches "
+          f"{counts}, {step_ms:.4f} ms per step ({card})")
+    if launches != BL_STEPS or any(counts.values()):
+        fail(f"batch-last assembly: K3 kernel layout {launches}, {counts}")
+    if not all(bool(torch.isfinite(x).all()) for x in (s.qpos, s.qvel)):
+        fail("batch-last assembly: non-finite states")
+
+    failures = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    ws = cph.qacc_warmstart.T.contiguous()
+    kl = engine.newton_inputs(model, cph, kernel_layout=True)
+    rm = engine.newton_inputs(model, cph)
+    rows = k3_to_rows(kl)
+    got = k3.newton_solve(*kl, warmstart=ws, pre_transposed=True)
+    same = torch.equal(got, k3.newton_solve(*rows, warmstart=ws))
+    print(f"check K3 kernel layout B={B_MAIN}: bitwise equal to K3 "
+          f"row-major on the same arrays moved to row-major: {same}")
+    if not same:
+        failures.append("K3 kernel layout vs row-major bits")
+    err = check_k3(f"kernel layout B={B_MAIN}", got,
+                   k3.newton_solve_plain(*kl, warmstart=ws,
+                                         pre_transposed=True),
+                   failures, k3_witness(rows, ws, gen))
+    check_repeat("K3 kernel layout", [got],
+                 [k3.newton_solve(*kl, warmstart=ws, pre_transposed=True)],
+                 failures)
+    names = ("M", "a_s", "G", "j_aref", "j_R", "j_floss", "j_active",
+             "j_kind", "Jn", "Jt1", "Jt2", "c_aref", "c_R", "c_mu",
+             "c_active")
+    for i, name in enumerate(names):
+        a, b = rows[i], rm[i]
+        if not isinstance(a, torch.Tensor):
+            continue
+        scale = max(float(b.abs().max()), 1e-30)
+        d = float((a - b).abs().max())
+        print(f"check assembly {name}: batch-last against the staged "
+              f"step's, max |diff| {d:.3e} (max |value| {scale:.3e}; tol "
+              f"{BL_ROWS_TOL[0]:g} + {BL_ROWS_TOL[1]:g} max|value|)")
+        if not d <= BL_ROWS_TOL[0] + BL_ROWS_TOL[1] * scale:
+            failures.append(f"assembly {name}")
+    check_k3(f"kernel layout vs the staged assembly B={B_MAIN}", got,
+             k3.newton_solve(*rm, warmstart=ws), failures,
+             k3_witness(rm, ws, gen))
+    if failures:
+        fail(f"batch-last assembly: {failures}")
+
+    # times: each assembly with K3, then K3 alone in each layout (A B B A)
+    def bl_call():
+        return k3.newton_solve(*engine.newton_inputs(model, cph, True),
+                               warmstart=ws, pre_transposed=True)
+
+    def rm_call():
+        return k3.newton_solve(*engine.newton_inputs(model, cph),
+                               warmstart=ws)
+
+    asm = {}
+    for name, fn in (("row-major", rm_call), ("batch-last", bl_call),
+                     ("batch-last ", bl_call), ("row-major ", rm_call)):
+        asm.setdefault(name.strip(), []).append(
+            (cuda_ms(fn, 10), profiled_device_ms(fn, 3)))
+    for name, runs in asm.items():
+        print(f"assembly + K3 ({name}): "
+              + ", ".join(f"{m:.4f} ms per call, {d:.4f} ms on the device"
+                          for m, d in runs) + f" (B={B_MAIN}, {card})")
+    kl_call = functools.partial(k3.newton_solve, *kl, warmstart=ws,
+                                pre_transposed=True)
+    rm_k3 = functools.partial(k3.newton_solve, *rm, warmstart=ws)
+    order = (("row-major", rm_k3), ("kernel layout", kl_call),
+             ("kernel layout", kl_call), ("row-major", rm_k3))
+    k3_times = {}
+    for name, fn in order:
+        k3_times.setdefault(name, []).append((cuda_ms(fn, 20),
+                                              graph_ms(fn, 20)))
+    for name, runs in k3_times.items():
+        print(f"K3 {name} alone: " + ", ".join(
+            f"{m:.4f} ms per call, {d:.4f} ms on the device"
+            for m, d in runs) + f" (B={B_MAIN}, {card})")
+    plain_ms = cuda_ms(lambda: k3.newton_solve_plain(
+        *kl, warmstart=ws, pre_transposed=True), 2)
+    na = float(kl[14].sum(0).float().mean())
+    nbytes = k3_bytes(model.nv, kl[2].shape[1], kl[8].shape[1], na)
+    jg = (kl[2][:, :, 0] != 0).sum(0).tolist()
+    flop = k3_ops(model.nv, jg, na, model.solver_iterations,
+                  model.ls_iterations, True)
+    bound, by = bound_ms(nbytes * B_MAIN, flop * B_MAIN)
+    ms_kl = [m for m, _ in k3_times["kernel layout"]]
+    dev_kl = [d for _, d in k3_times["kernel layout"]]
+    print(f"K3 kernel layout: plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
+          f"by {by} ({nbytes:.0f} B and {flop:.0f} operations per env with "
+          f"{na:.2f} of {kl[8].shape[1]} contact rows in contact)")
+    return dict(launches=launches, err=err, ms=min(ms_kl),
+                dev_ms=min(dev_kl), plain_ms=plain_ms, bound=bound, by=by)
 
 
 # K1_VARIANTS keys: <with_env, with_fresh, ws_compare, dr>
@@ -2967,6 +3260,16 @@ def main():
           f"{sys_args[8].shape[0]} contact rows in contact) at B={B_MAIN} "
           f"({card})")
 
+    # -- phase 4b: the imported robot through K1 ---------------------------
+    t0 = time.perf_counter()
+    import_phase(card, dev, env, reset_states)
+    print(f"import phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 4c: the batch-last assembly feeding K3 in its layout -------
+    t0 = time.perf_counter()
+    bl = constraint_bl_phase(card, dev, cenv, cstates, logs)
+    print(f"batch-last assembly phase: {time.perf_counter() - t0:.1f} s")
+
     # -- phase 5: the trainer ---------------------------------------------
     t0 = time.perf_counter()
     trainer_phase(card, dev)
@@ -3009,6 +3312,11 @@ def main():
               "mujoco_playground_tpu/ops/newton_pallas.py:366",
               launches_st["K3"], k3_err, k3_ms, k3_dev_ms, k3_plain_ms,
               k3_bound, k3_by),
+        entry("K3 Newton solve, kernel-layout input (batch-last assembly)",
+              "newton_kernel.cu",
+              "mujoco_playground_tpu/ops/newton_pallas.py:366",
+              bl["launches"], bl["err"], bl["ms"], bl["dev_ms"],
+              bl["plain_ms"], bl["bound"], bl["by"]),
         entry("K1 plain physics step <0,0,0> (path R)", "step_kernel.cu",
               step_src, paths["R"]["counts"]["K1"], k1p_err, k1p_ms,
               k1p_dev_ms, k1p_plain_ms, k1p_bound, k1p_by),

@@ -8,12 +8,18 @@
 // mj_warmstart pick.  The whole system arrives from memory, with every dof
 // in one dense group (no static sparsity to prune).
 //
-// I/O is batch-last float32, row-major as ops/newton.py newton_solve takes
-// it: Mt (NV, NV, B), a_s (NV, B), G (nj, NV, B), j_aref / j_R / j_floss /
-// j_active (nj, B), Jn / Jt1 / Jt2 (nc, NV, B), c_aref (nc, 4, B), c_R /
-// c_mu / c_active (nc, B), ws (NV, B) or null; out qacc (NV, B).  nj and nc
-// are runtime values (nc = 48 on a maze, 72 with the wheel patch); the
-// joint-row kinds come as bit masks.
+// I/O is batch-last float32, as ops/newton.py newton_solve takes it: Mt
+// (NV, NV, B), a_s (NV, B), j_aref / j_R / j_floss / j_active (nj, B), c_R /
+// c_mu / c_active (nc, B), ws (NV, B) or null; out qacc (NV, B); and the
+// rows in one of two layouts, each read in place by its own instantiation
+// of the kernel (template parameter KL): row-major, G (nj, NV, B), Jn / Jt1
+// / Jt2 (nc, NV, B), c_aref (nc, 4, B), as solver_batched.newton_args lays
+// them out; or the kernel layout of newton_solve_pallas(pre_transposed=
+// True), G (NV, nj, B), Jn / Jt1 / Jt2 (NV, nc, B), c_aref (4, nc, B), as
+// physics/constraint_bl.py assembles them.  The layout changes only where
+// the loads read (k3_*_row); the block's workspace and everything after the
+// loads are the same.  nj and nc are runtime values (nc = 48 on a maze, 72
+// with the wheel patch); the joint-row kinds come as bit masks.
 //
 // What bounds it on an H100: the inputs hold ~13.8 KB per env at nc = 72
 // (the dense Jacobians dominate), but an env needs only M, a_s, the warm
@@ -194,6 +200,21 @@ HD void k3_weights(const K3Row& o, float* cw) {
   cw[7] = o.mu * o.mu * w23;
 }
 
+// The row of a B-long slab that holds an entry of the system, in the
+// layout KL names (false: row-major; true: the kernel layout).
+template <bool KL>
+HD long k3_g_row(const K3Args& A, int r, int v) {  // G[r][v]
+  return KL ? (long)v * A.nj + r : (long)r * NV + v;
+}
+template <bool KL>
+HD long k3_j_row(const K3Args& A, long c, int v) {  // Jn[c][v], ...
+  return KL ? (long)v * A.nc + c : c * NV + v;
+}
+template <bool KL>
+HD long k3_a_row(const K3Args& A, long c, int k) {  // c_aref[c][k]
+  return KL ? (long)k * A.nc + c : c * 4 + k;
+}
+
 HD int k3_kind(const K3Args& A, int r) {
   return (A.eq_mask >> r) & 1 ? 0 : ((A.fric_mask >> r) & 1 ? 1 : 2);
 }
@@ -310,28 +331,37 @@ HD void k3_chol_solve(const K3Grp& g, K3Rows& row, K3Slots& t, float* x) {
 }
 
 // The block's envs b0 .. b0 + K3_ENVS - 1 copy their systems into their
-// workspaces: thread tid of nthr takes elements tid, tid + nthr, ... of
-// each input, env fastest.  The contact flags go first, as a group of
-// their own, so the rows in contact can be listed while the rest arrives.
+// workspaces: thread tid of nthr takes entries tid, tid + nthr, ... of
+// each workspace array, env fastest.  The contact flags go first, as
+// a group of their own, so the rows in contact can be listed while the rest
+// arrives.
+template <bool KL>
 HD void k3_load_block(K3Block& blk, const K3Args& A, long b0, int tid,
                       int nthr) {
   const long B = A.B;
-  auto rows = [&](const float* src, int n, auto dst) {
+  // entry r of the workspace array dst comes from row at(r) of src
+  auto rows = [&](const float* src, int n, auto dst, auto at) {
     for (int i = tid; i < n * K3_ENVS; i += nthr) {
       int r = i / K3_ENVS, e = i % K3_ENVS;
-      if (b0 + e < B) k3_copy(dst(blk.env[e]) + r, src + r * B + b0 + e);
+      if (b0 + e < B) k3_copy(dst(blk.env[e]) + r, src + at(r) * B + b0 + e);
     }
   };
-  rows(A.c_active, A.nc, [](K3Ws& w) { return w.cact; });
+  auto same = [](int r) { return r; };
+  // w.G[j][v], entry r = j * NV + v: G's row r, or v * nj + j in the
+  // kernel layout
+  auto g_at = [&](int r) {
+    return KL ? (int)k3_g_row<KL>(A, r / NV, r % NV) : r;
+  };
+  rows(A.c_active, A.nc, [](K3Ws& w) { return w.cact; }, same);
   k3_copy_commit();
-  rows(A.M, NV * NV, [](K3Ws& w) { return &w.M[0][0]; });
-  rows(A.a_s, NV, [](K3Ws& w) { return w.a_s; });
-  if (A.ws != nullptr) rows(A.ws, NV, [](K3Ws& w) { return w.a0; });
-  rows(A.G, A.nj * NV, [](K3Ws& w) { return &w.G[0][0]; });
-  rows(A.j_aref, A.nj, [](K3Ws& w) { return w.jaref; });
-  rows(A.j_R, A.nj, [](K3Ws& w) { return w.jrinv; });  // R until prepared
-  rows(A.j_floss, A.nj, [](K3Ws& w) { return w.jfloss; });
-  rows(A.j_active, A.nj, [](K3Ws& w) { return w.jact; });
+  rows(A.M, NV * NV, [](K3Ws& w) { return &w.M[0][0]; }, same);
+  rows(A.a_s, NV, [](K3Ws& w) { return w.a_s; }, same);
+  if (A.ws != nullptr) rows(A.ws, NV, [](K3Ws& w) { return w.a0; }, same);
+  rows(A.G, A.nj * NV, [](K3Ws& w) { return &w.G[0][0]; }, g_at);
+  rows(A.j_aref, A.nj, [](K3Ws& w) { return w.jaref; }, same);
+  rows(A.j_R, A.nj, [](K3Ws& w) { return w.jrinv; }, same);  // R for now
+  rows(A.j_floss, A.nj, [](K3Ws& w) { return w.jfloss; }, same);
+  rows(A.j_active, A.nj, [](K3Ws& w) { return w.jact; }, same);
   k3_copy_commit();
 }
 
@@ -365,13 +395,15 @@ HD void k3_place(K3Block& blk) {
 
 // Pointer to value f of contact row c of env b, f in K3Row's order (J,
 // aref4, R, mu, active).
+template <bool KL>
 HD const float* k3_row_src(const K3Args& A, long c, int f, long b) {
   const long B = A.B;
   if (f < 3 * NV) {
     const float* J = f < NV ? A.Jn : (f < 2 * NV ? A.Jt1 : A.Jt2);
-    return J + (c * NV + f % NV) * B + b;
+    return J + k3_j_row<KL>(A, c, f % NV) * B + b;
   }
-  if (f < 3 * NV + 4) return A.c_aref + (c * 4 + f - 3 * NV) * B + b;
+  if (f < 3 * NV + 4)
+    return A.c_aref + k3_a_row<KL>(A, c, f - 3 * NV) * B + b;
   const float* src = f == 3 * NV + 4 ? A.c_R
                                      : (f == 3 * NV + 5 ? A.c_mu : A.c_active);
   return src + c * B + b;
@@ -383,13 +415,18 @@ HD const float* k3_row_src(const K3Args& A, long c, int f, long b) {
 #define K3_KEEP_STEP 2  // and x4, and jd4 along the step
 
 // Rows j0 .. j0 + n - 1 of the env's rows in contact into its window:
-// lane l starts the copies of values l, l + K3_G, ... of every row.
+// lane l starts the copies of values l, l + K3_G, ... of every row.  In
+// the kernel layout a value's slabs of consecutive contact rows are
+// consecutive.
+template <bool KL>
 HD void k3_copy_rows(const K3Grp& g, const K3Args& A, K3Block& blk,
                      const K3Ws& w, long b, int j0, int n) {
   lanes(g, [&](int lane) {
     for (int f = lane; f < K3_ROWF; f += K3_G) {
-      const float* src = k3_row_src(A, 0, f, b);
-      long stride = f < 3 * NV ? NV * A.B : (f < 3 * NV + 4 ? 4 * A.B : A.B);
+      const float* src = k3_row_src<KL>(A, 0, f, b);
+      long stride = KL ? A.B
+                       : (f < 3 * NV ? NV * A.B
+                                     : (f < 3 * NV + 4 ? 4 * A.B : A.B));
       for (int i = 0; i < n; ++i)
         k3_copy(reinterpret_cast<float*>(&blk.pool[w.off + i]) + f,
                 src + w.idx[j0 + i] * stride);
@@ -417,7 +454,7 @@ HD void k3_finish_rows(const K3Grp& g, K3Block& blk, const K3Ws& w, int n,
 // first, so f may hold per-lane state across calls only in PerLane values.
 // A barrier opens each chunk, so its copies never race a lane still
 // reading the rows of the chunk before.
-template <class F>
+template <bool KL, class F>
 HD void k3_pass(const K3Grp& g, const K3Args& A, K3Block& blk, K3Ws& w,
                 long b, int keep, F&& f) {
   if (w.cap >= w.na) {
@@ -429,7 +466,7 @@ HD void k3_pass(const K3Grp& g, const K3Args& A, K3Block& blk, K3Ws& w,
     // every lane has done with the window's rows before any lane's copies
     // overwrite them (f and the code before the pass may end in lanes())
     stage(g, [](int) {});
-    k3_copy_rows(g, A, blk, w, b, j0, n);
+    k3_copy_rows<KL>(g, A, blk, w, b, j0, n);
     stage(g, [](int) { k3_copy_wait(); });
     k3_finish_rows(g, blk, w, n, keep);
     f(j0, n);
@@ -437,6 +474,7 @@ HD void k3_pass(const K3Grp& g, const K3Args& A, K3Block& blk, K3Ws& w,
 }
 
 // The solve of env b; the result in w.a.
+template <bool KL>
 HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
                  long b) {
   K3Ws& w = blk.env[e];
@@ -474,7 +512,7 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
       p0.at(lane) = s0;
       p1.at(lane) = s1;
     });
-    k3_pass(g, A, blk, w, b, K3_KEEP_NONE, [&](int, int n) {
+    k3_pass<KL>(g, A, blk, w, b, K3_KEEP_NONE, [&](int, int n) {
       lanes(g, [&](int lane) {
         for (int i = lane; i < n; i += K3_G) {
           p0.at(lane) = p0.at(lane) + k3_contact_cost(pool[i], w.a0);
@@ -542,7 +580,7 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
         t.at(lane)[q] = jtf;
       }
     });
-    k3_pass(g, A, blk, w, b, K3_KEEP_AT, [&](int, int n) {
+    k3_pass<KL>(g, A, blk, w, b, K3_KEEP_AT, [&](int, int n) {
       lanes(g, [&](int lane) {
         for (int c = 0; c < n; ++c) {
           const K3Row& o = pool[c];
@@ -618,7 +656,7 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
         pd.at(lane) = sd;
         pdd.at(lane) = sdd;
       });
-      k3_pass(g, A, blk, w, b, K3_KEEP_STEP, [&](int, int n) {
+      k3_pass<KL>(g, A, blk, w, b, K3_KEEP_STEP, [&](int, int n) {
         lanes(g, [&](int lane) {
           float sd = pd.at(lane), sdd = pdd.at(lane);
           for (int i = lane; i < n; i += K3_G) {
@@ -658,10 +696,11 @@ HD void k3_store_block(K3Block& blk, const K3Args& A, long b0, int tid,
 
 #ifdef __CUDACC__
 
+template <bool KL>
 __global__ void __launch_bounds__(K3_THREADS) k3_kernel(K3Args A) {
   __shared__ K3Block blk;
   long b0 = (long)blockIdx.x * K3_ENVS;
-  k3_load_block(blk, A, b0, threadIdx.x, K3_THREADS);
+  k3_load_block<KL>(blk, A, b0, threadIdx.x, K3_THREADS);
   k3_copy_wait_prior();  // the contact flags
   __syncthreads();
   int e = threadIdx.x / K3_G;
@@ -673,10 +712,10 @@ __global__ void __launch_bounds__(K3_THREADS) k3_kernel(K3Args A) {
   if (threadIdx.x == 0) k3_place(blk);
   __syncthreads();
   K3Ws& w = blk.env[e];
-  if (b < A.B && w.cap >= w.na) k3_copy_rows(g, A, blk, w, b, 0, w.na);
+  if (b < A.B && w.cap >= w.na) k3_copy_rows<KL>(g, A, blk, w, b, 0, w.na);
   k3_copy_wait();  // the systems and the resident rows
   __syncthreads();
-  if (b < A.B) k3_solve(g, A, blk, e, b);
+  if (b < A.B) k3_solve<KL>(g, A, blk, e, b);
   __syncthreads();
   k3_store_block(blk, A, b0, threadIdx.x, K3_THREADS);
 }
@@ -691,33 +730,71 @@ __global__ void __launch_bounds__(K3_THREADS) k3_kernel(K3Args A) {
 typedef void* cudaStream_t;
 #define K3_LAUNCH_ERROR() 0
 
+template <bool KL>
 static void k3_host(const K3Args& A) {
   std::vector<K3Block> blk(1);
   K3Block& k = blk[0];
   K3Grp g{0, 0u};
   for (long b0 = 0; b0 < A.B; b0 += K3_ENVS) {
-    k3_load_block(k, A, b0, 0, 1);
+    k3_load_block<KL>(k, A, b0, 0, 1);
     for (int e = 0; e < K3_ENVS; ++e)
       k.env[e].na = b0 + e < A.B ? k3_list_rows(g, A, k.env[e]) : 0;
     k3_place(k);
     for (int e = 0; e < K3_ENVS && b0 + e < A.B; ++e)
       if (k.env[e].cap >= k.env[e].na)
-        k3_copy_rows(g, A, k, k.env[e], b0 + e, 0, k.env[e].na);
+        k3_copy_rows<KL>(g, A, k, k.env[e], b0 + e, 0, k.env[e].na);
     for (int e = 0; e < K3_ENVS && b0 + e < A.B; ++e)
-      k3_solve(g, A, k, e, b0 + e);
+      k3_solve<KL>(g, A, k, e, b0 + e);
     k3_store_block(k, A, b0, 0, 1);
   }
 }
 
 #endif  // __CUDACC__
 
+template <bool KL>
+static int k3_launch_layout(K3Args A, cudaStream_t stream) {
+  if (A.nj < 0 || A.nj > K3_MAX_NJ || A.nc < 0 || A.nc > K3_MAX_NC) {
+#ifdef __CUDACC__
+    return (int)cudaErrorInvalidValue;
+#else
+    return 1;
+#endif
+  }
+#ifdef __CUDACC__
+  unsigned blocks = (unsigned)((A.B + K3_ENVS - 1) / K3_ENVS);
+  if (A.B > 0) k3_kernel<KL><<<blocks, K3_THREADS, 0, stream>>>(A);
+#else
+  (void)stream;
+  if (A.B > 0) k3_host<KL>(A);
+#endif
+  return K3_LAUNCH_ERROR();
+}
+
+// out[0] shared bytes per block, out[1] threads per block, out[2] resident
+// blocks per SM (0 in the host build) of the instantiation KL.  Returns the
+// CUDA error, 0 on success.
+template <bool KL>
+static int k3_occupancy_of(int* out) {
+  out[0] = (int)sizeof(K3Block);
+  out[1] = K3_THREADS;
+#ifdef __CUDACC__
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], k3_kernel<KL>, K3_THREADS, 0);
+#else
+  out[2] = 0;
+  return 0;
+#endif
+}
+
 extern "C" {
 
 int k3_nv() { return NV; }
 
-// Launches K3 on the stream (the host build runs it in place).  Returns the
-// CUDA error of the launch, 0 on success; nj or nc beyond what the kernel
-// holds returns cudaErrorInvalidValue (1 on the host).
+// Launches K3 on the stream (the host build runs it in place) with G, Jn /
+// Jt1 / Jt2 and c_aref row-major (k3_launch) or in the kernel layout
+// (k3_launch_kernel_layout).  Returns the CUDA error of the launch, 0 on
+// success; nj or nc beyond what the kernel holds returns
+// cudaErrorInvalidValue (1 on the host).
 int k3_launch(const float* M, const float* a_s, const float* G,
               const float* j_aref, const float* j_R, const float* j_floss,
               const float* j_active, const float* Jn, const float* Jt1,
@@ -730,35 +807,30 @@ int k3_launch(const float* M, const float* a_s, const float* G,
               j_active, Jn, Jt1,   Jt2,      c_aref,     c_R,
               c_mu,  c_active, ws, qacc,     B,          nj,
               nc,    iterations, ls_iterations, eq_mask, fric_mask};
-  if (nj < 0 || nj > K3_MAX_NJ || nc < 0 || nc > K3_MAX_NC) {
-#ifdef __CUDACC__
-    return (int)cudaErrorInvalidValue;
-#else
-    return 1;
-#endif
-  }
-#ifdef __CUDACC__
-  if (B > 0)
-    k3_kernel<<<(B + K3_ENVS - 1) / K3_ENVS, K3_THREADS, 0, stream>>>(A);
-#else
-  if (B > 0) k3_host(A);
-#endif
-  return K3_LAUNCH_ERROR();
+  return k3_launch_layout<false>(A, stream);
 }
 
-// out[0] shared bytes per block, out[1] threads per block, out[2] resident
-// blocks per SM (0 in the host build).  Returns the CUDA error, 0 on
-// success.
-int k3_occupancy(int* out) {
-  out[0] = (int)sizeof(K3Block);
-  out[1] = K3_THREADS;
-#ifdef __CUDACC__
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], k3_kernel, K3_THREADS, 0);
-#else
-  out[2] = 0;
-  return 0;
-#endif
+int k3_launch_kernel_layout(const float* M, const float* a_s, const float* G,
+                            const float* j_aref, const float* j_R,
+                            const float* j_floss, const float* j_active,
+                            const float* Jn, const float* Jt1,
+                            const float* Jt2, const float* c_aref,
+                            const float* c_R, const float* c_mu,
+                            const float* c_active, const float* ws,
+                            float* qacc, int B, int nj, int nc,
+                            int iterations, int ls_iterations, int eq_mask,
+                            int fric_mask, cudaStream_t stream) {
+  K3Args A = {M,     a_s,  G,      j_aref,   j_R,        j_floss,
+              j_active, Jn, Jt1,   Jt2,      c_aref,     c_R,
+              c_mu,  c_active, ws, qacc,     B,          nj,
+              nc,    iterations, ls_iterations, eq_mask, fric_mask};
+  return k3_launch_layout<true>(A, stream);
+}
+
+int k3_occupancy(int* out) { return k3_occupancy_of<false>(out); }
+
+int k3_occupancy_kernel_layout(int* out) {
+  return k3_occupancy_of<true>(out);
 }
 
 }  // extern "C"

@@ -12,7 +12,11 @@ a joint row 1-2) costs no arithmetic.  The CUDA step kernel
 Kernel K3 (``newton_solve``, ``csrc/newton_kernel.cu``) is the standalone
 solve of the staged step (``newton_solve_pallas``): the whole system
 arrives from memory, batch-last, and its twin ``newton_solve_plain`` feeds
-``newton_body`` dense rows exactly as the JAX kernel builds them.
+``newton_body`` dense rows exactly as the JAX kernel builds them.  K3 reads
+the system in either of two layouts, as ``newton_solve_pallas`` does:
+row-major (``solver_batched.newton_args``) or, with ``pre_transposed``,
+the kernel layout ``physics/constraint_bl.py`` assembles, each read in
+place by its own instantiation of the kernel.
 """
 from __future__ import annotations
 
@@ -319,14 +323,20 @@ K3_MAX_NC = 72   # contact rows it holds per env (72 with the wheel patch)
 
 def newton_solve_plain(Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind,
                        Jn, Jt1, Jt2, c_aref, c_R, c_mu, c_active,
-                       iterations, ls_iterations, warmstart=None):
+                       iterations, ls_iterations, warmstart=None,
+                       pre_transposed=False):
     """Plain twin of K3: the arrays as the JAX ``newton_solve_pallas``
     takes them row-major (Mt (nv, nv, B), a_s (nv, B), G (nj, nv, B),
-    j_* (nj, B), Jn/Jt1/Jt2 (nc, nv, B), c_aref (nc, 4, B), c_* (nc, B)),
-    fed to ``newton_body`` as the JAX kernel builds its lists: every entry
-    a lane (nothing static to prune), all contact rows in one all-dof
-    group, ``Rinv = 1 / R``, and with a warm start the two-sided
-    mj_warmstart pick.  Returns qacc (nv, B)."""
+    j_* (nj, B), Jn/Jt1/Jt2 (nc, nv, B), c_aref (nc, 4, B), c_* (nc, B))
+    or, with ``pre_transposed``, in the kernel layout (G (nv, nj, B),
+    Jn/Jt1/Jt2 (nv, nc, B), c_aref (4, nc, B)), fed to ``newton_body`` as
+    the JAX kernel builds its lists: every entry a lane (nothing static to
+    prune), all contact rows in one all-dof group, ``Rinv = 1 / R``, and
+    with a warm start the two-sided mj_warmstart pick.  Returns qacc
+    (nv, B)."""
+    if pre_transposed:
+        G, Jn, Jt1, Jt2, c_aref = (torch.movedim(t, 0, 1)
+                                   for t in (G, Jn, Jt1, Jt2, c_aref))
     nv = a_s.shape[0]
     nc = Jn.shape[0]
     M = [[Mt[v, w] for w in range(nv)] for v in range(nv)]
@@ -347,13 +357,17 @@ def newton_solve_plain(Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind,
 
 def launch_k3(lib, Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
               Jt1, Jt2, c_aref, c_R, c_mu, c_active, iterations,
-              ls_iterations, warmstart, stream):
+              ls_iterations, warmstart, stream, pre_transposed=False):
     """Run K3 from the loaded library ``lib`` on ``stream``: checks the
-    inputs, allocates qacc (nv, B) and raises if the launch fails.  The
-    CUDA build takes device pointers and a CUDA stream; the host build of
-    the same source (tests) CPU pointers."""
+    inputs in the layout ``pre_transposed`` names, allocates qacc (nv, B)
+    and raises if the launch fails.  The CUDA build takes device pointers
+    and a CUDA stream; the host build of the same source (tests) CPU
+    pointers."""
     nv, B = a_s.shape
-    nj, nc = G.shape[0], Jn.shape[0]
+    if pre_transposed:
+        nj, nc = G.shape[1], Jn.shape[1]
+    else:
+        nj, nc = G.shape[0], Jn.shape[0]
     dims = lib.k3_nv
     dims.restype = ctypes.c_int
     if nv != dims():
@@ -363,11 +377,13 @@ def launch_k3(lib, Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
         raise ValueError(f"Newton kernel holds at most {K3_MAX_NJ} joint and "
                          f"{K3_MAX_NC} contact rows; got {nj} and {nc}")
     dev = a_s.device
-    arrays = [("Mt", Mt, (nv, nv)), ("a_s", a_s, (nv,)), ("G", G, (nj, nv)),
+    g_rows, j_rows, a_rows = (((nv, nj), (nv, nc), (4, nc)) if pre_transposed
+                              else ((nj, nv), (nc, nv), (nc, 4)))
+    arrays = [("Mt", Mt, (nv, nv)), ("a_s", a_s, (nv,)), ("G", G, g_rows),
               ("j_aref", j_aref, (nj,)), ("j_R", j_R, (nj,)),
               ("j_floss", j_floss, (nj,)), ("j_active", j_active, (nj,)),
-              ("Jn", Jn, (nc, nv)), ("Jt1", Jt1, (nc, nv)),
-              ("Jt2", Jt2, (nc, nv)), ("c_aref", c_aref, (nc, 4)),
+              ("Jn", Jn, j_rows), ("Jt1", Jt1, j_rows),
+              ("Jt2", Jt2, j_rows), ("c_aref", c_aref, a_rows),
               ("c_R", c_R, (nc,)), ("c_mu", c_mu, (nc,)),
               ("c_active", c_active, (nc,))]
     if warmstart is not None:
@@ -387,7 +403,7 @@ def launch_k3(lib, Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
     eq_mask = sum(1 << r for r, k in enumerate(kinds) if k == EQ)
     fric_mask = sum(1 << r for r, k in enumerate(kinds) if k == FRICTION)
     out = torch.empty((nv, B), dtype=torch.float32, device=dev)
-    fn = lib.k3_launch
+    fn = lib.k3_launch_kernel_layout if pre_transposed else lib.k3_launch
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -403,22 +419,30 @@ def launch_k3(lib, Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
 
 def newton_solve(Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn,
                  Jt1, Jt2, c_aref, c_R, c_mu, c_active, iterations,
-                 ls_iterations, warmstart=None):
+                 ls_iterations, warmstart=None, pre_transposed=False):
     """K3: the batch-last Newton solve, arrays as ``newton_solve_plain``
-    takes them.  CPU tensors take the twin; CUDA tensors launch
-    ``csrc/newton_kernel.cu``.  ``launches`` counts kernel launches."""
+    takes them, in either layout.  CPU tensors take the twin; CUDA tensors
+    launch ``csrc/newton_kernel.cu``, which reads either layout in place.
+    ``launches`` counts the kernel's launches on the row-major layout,
+    ``launches_kernel_layout`` those on the kernel layout."""
     args = (Mt, a_s, G, j_aref, j_R, j_floss, j_active, j_kind, Jn, Jt1,
             Jt2, c_aref, c_R, c_mu, c_active, iterations, ls_iterations)
     if a_s.device.type == "cpu":
-        return newton_solve_plain(*args, warmstart=warmstart)
+        return newton_solve_plain(*args, warmstart=warmstart,
+                                  pre_transposed=pre_transposed)
     if a_s.device.type != "cuda":
         raise ValueError(f"newton_solve: unsupported device {a_s.device}")
     from mujoco_playground_tpu_torch.ops import build
     with torch.cuda.device(a_s.device):
         out = launch_k3(build.load("newton_kernel.cu"), *args, warmstart,
-                        torch.cuda.current_stream(a_s.device).cuda_stream)
-    newton_solve.launches += 1
+                        torch.cuda.current_stream(a_s.device).cuda_stream,
+                        pre_transposed=pre_transposed)
+    if pre_transposed:
+        newton_solve.launches_kernel_layout += 1
+    else:
+        newton_solve.launches += 1
     return out
 
 
 newton_solve.launches = 0
+newton_solve.launches_kernel_layout = 0

@@ -1088,13 +1088,18 @@ def _check_dims(sm: StaticModel):
     have = dict(NQ=sm.nq, NV=sm.nv, NU=sm.nu, NBODY=sm.nbody, NJNT=sm.njnt,
                 NSITE=sm.nsite, NWHEEL=len(sm.wheel_body),
                 NHULL=len(sm.chassis_box_body),
-                NHULLV=sm.chassis_hull_verts.shape[1],
                 NJROW=(len(sm.eq_dof_pairs) + len(sm.friction_dofs)
                        + 2 * len(sm.limited_dofs)))
     for k, v in have.items():
         if _DIMS[k] != v:
             raise ValueError(f"the step kernel is compiled for {k}={_DIMS[k]}"
                              f", the model has {v}")
+    # a hull of fewer vertices (a box proxy's 8 corners) is padded with
+    # vertices that no quadrant lists, so the kernel never picks them
+    if sm.chassis_hull_verts.shape[1] > _DIMS["NHULLV"]:
+        raise ValueError(f"the step kernel holds at most NHULLV="
+                         f"{_DIMS['NHULLV']} vertices per hull, the model "
+                         f"has {sm.chassis_hull_verts.shape[1]}")
     if len(sm.eq_dof_pairs) != _DIMS["NEQ"] or \
             len(sm.friction_dofs) != _DIMS["NFRIC"]:
         raise ValueError("the step kernel is compiled for another joint "
@@ -1204,8 +1209,9 @@ def step_constants(model, fresh_statics=None) -> K1Const:
     for i, quads in enumerate(sm.chassis_hull_quadrants):
         for k, q in enumerate(quads):
             c.hull_quad[i][k] = sum(1 << int(v) for v in q)
-    fill(c.hull_verts, sm.chassis_hull_verts)
-    fill(c.hull_bias, sm.chassis_hull_bias)
+    for i in range(len(sm.chassis_box_body)):
+        fill(c.hull_verts[i], sm.chassis_hull_verts[i])
+        fill(c.hull_bias[i], sm.chassis_hull_bias[i])
     fill(c.hull_center, sm.chassis_box_pos)
     fill(c.plane_frame, make_frame([0.0, 0.0, 1.0], None))
     if sm.num_scene_boxes:

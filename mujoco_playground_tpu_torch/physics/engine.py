@@ -30,9 +30,10 @@ import torch
 from mujoco_playground_tpu_torch.ops import step as k1
 from mujoco_playground_tpu_torch.ops.newton import newton_solve
 from mujoco_playground_tpu_torch.physics import (batchlast, collision,
-                                                 constraint, inertia,
-                                                 kinematics, linalg_small,
-                                                 solver, solver_batched)
+                                                 constraint, constraint_bl,
+                                                 inertia, kinematics,
+                                                 linalg_small, solver,
+                                                 solver_batched)
 from mujoco_playground_tpu_torch.physics import mathutil as mu
 from mujoco_playground_tpu_torch.physics.model import (JNT_FREE, Model,
                                                        randomized_fields)
@@ -122,11 +123,15 @@ def step_batch(model: Model, states: State, base_model: Model = None,
     return new
 
 
-def newton_inputs(model: Model, states: State) -> tuple:
+def newton_inputs(model: Model, states: State,
+                  kernel_layout: bool = False) -> tuple:
     """The Newton system the staged step solves for ``states``: batch-last
     CRBA/RNEA, actuation and smooth solve, then batched collision and
     constraint rows, as kernel K3's positional arguments
-    (``solver_batched.newton_args``; the warm start is the caller's)."""
+    (``solver_batched.newton_args``; the warm start is the caller's).
+    ``kernel_layout`` assembles the rows batch-last in K3's own layout
+    (``constraint_bl.make_efc_bl``, for ``newton_solve(...,
+    pre_transposed=True)``; an unrandomized model only)."""
     qpos_bl, qvel_bl = states.qpos.T, states.qvel.T
     xpos_l = [states.xpos[:, b].T for b in range(model.nbody)]
     xquat_l = [states.xquat[:, b].T for b in range(model.nbody)]
@@ -138,6 +143,14 @@ def newton_inputs(model: Model, states: State) -> tuple:
     qacc_smooth_bl = linalg_small.cho_solve_bl(
         linalg_small.cholesky_bl(M_bl), qfrc_smooth_bl)
     contacts = collision.collide(model, states.xpos, states.xquat)
+    if kernel_layout:
+        e = constraint_bl.make_efc_bl(model, qpos_bl, qvel_bl, S_bl,
+                                      anchor_bl, contacts)
+        return (M_bl.contiguous(), qacc_smooth_bl.contiguous(), e["Gt"],
+                e["j_aref"], e["j_R"], e["j_floss"], e["j_active"],
+                e["j_kind"], e["Jnt"], e["Jt1t"], e["Jt2t"], e["c_aref4"],
+                e["c_R"], e["c_mu"], e["c_active"], model.solver_iterations,
+                model.ls_iterations)
     efc = constraint.make_efc(model, states.qpos, states.qvel,
                               torch.movedim(S_bl, -1, 0), anchor_bl.T,
                               contacts)
@@ -151,7 +164,8 @@ def _damping_col(model: Model):
     return damp[:, None] if damp.dim() == 1 else damp
 
 
-def staged_step(model: Model, states: State) -> State:
+def staged_step(model: Model, states: State,
+                kernel_layout: bool = False) -> State:
     """The staged step (JAX ``engine.step_batch`` without the megakernel):
     the Newton system of ``newton_inputs``; its solve through K3 from the
     previous qacc with MuJoCo's two-sided warm-start pick; implicit-damping
@@ -159,11 +173,13 @@ def staged_step(model: Model, states: State) -> State:
     ``model`` may carry a leading env axis (domain randomization): every
     stage reads each env's own value (``batchlast._param_bl``,
     ``model.env_leaf``); the invweights stay the base model's unless they
-    are randomized themselves, as in the JAX package."""
+    are randomized themselves, as in the JAX package.  ``kernel_layout``
+    assembles the rows in K3's layout (``newton_inputs``; unrandomized
+    models only)."""
     h = model.timestep
-    args = newton_inputs(model, states)
-    a = newton_solve(*args,
-                     warmstart=states.qacc_warmstart.T.contiguous())
+    args = newton_inputs(model, states, kernel_layout)
+    a = newton_solve(*args, warmstart=states.qacc_warmstart.T.contiguous(),
+                     pre_transposed=kernel_layout)
     M_bl, qvel_bl, damp_col = args[0], states.qvel.T, _damping_col(model)
     rhs = ((M_bl * (qvel_bl + h * a)[None]).sum(1)
            + h * damp_col * qvel_bl)

@@ -1,4 +1,5 @@
 """The measurement helpers of ``chip_smoke.py`` that run without a card."""
+import math
 import pathlib
 import subprocess
 import sys
@@ -135,3 +136,60 @@ def test_chip_smoke_imports_no_optional_package():
     src = (ROOT / "chip_smoke.py").read_text()
     names = "|".join(chip_smoke.OPTIONAL)
     assert not re.findall(rf"^\s*(import|from)\s+({names})\b", src, re.M)
+
+
+def test_ulp_distance_counts_float32_steps():
+    """The import phase's leaf comparison: float32 values apart, across
+    zero and for the same bits."""
+    a = torch.tensor([1.0, -2.0, 0.0, 3.5])
+    b = torch.nextafter(a, torch.full_like(a, math.inf))
+    assert chip_smoke.ulp_distance(a, a).tolist() == [0, 0, 0, 0]
+    assert chip_smoke.ulp_distance(a, b).tolist() == [1, 1, 1, 1]
+    c = torch.nextafter(b, torch.full_like(a, math.inf))
+    assert chip_smoke.ulp_distance(a, c).tolist() == [2, 2, 2, 2]
+    tiny = torch.tensor([1e-45])
+    assert chip_smoke.ulp_distance(-tiny, tiny).tolist() == [2]
+    assert chip_smoke.ulp_distance(torch.tensor([-0.0]),
+                                   torch.tensor([0.0])).tolist() == [0]
+
+
+def test_model_leaf_diff_reads_values_shapes_and_statics():
+    """The import phase's report: the round trip's model against the hand
+    spec's differs in the chassis hulls only; a one-ulp move of a leaf
+    shows as (|diff|, 1)."""
+    import dataclasses
+
+    from mujoco_playground_tpu_torch.physics.model import make_model
+    from mujoco_playground_tpu_torch.spec import (mjcf, mjcf_import, robot,
+                                                  scene)
+    umaze = scene.pointmaze_scene("umaze")
+    hand = make_model(robot.ackermann_robot_v2(), umaze, device="cpu")
+    spec = mjcf_import.from_mjcf(mjcf.to_mjcf(robot.ackermann_robot_v2()))
+    imported = make_model(spec, umaze, device="cpu")
+    diff = chip_smoke.model_leaf_diff(imported, hand)
+    assert set(diff) == set(chip_smoke.IMPORT_HULL_FIELDS)
+    assert diff["chassis_hull_verts"] == "shape (2, 8, 3) vs (2, 36, 3)"
+    assert chip_smoke.model_leaf_diff(hand, hand) == {}
+    mass = hand.body_mass.clone()
+    mass[1] = torch.nextafter(mass[1], torch.tensor(math.inf))
+    moved = dataclasses.replace(hand, body_mass=mass)
+    d, ulps = chip_smoke.model_leaf_diff(moved, hand)["body_mass"]
+    assert ulps == 1 and 0 < d < 1e-6
+
+
+def test_k3_to_rows_moves_the_kernel_layout():
+    """The batch-last phase's bitwise check moves G, Jn/Jt1/Jt2 and c_aref
+    to row-major and leaves the rest as they are."""
+    nv, nj, nc, B = 12, 11, 48, 3
+    args = [torch.randn(nv, nv, B), torch.randn(nv, B),
+            torch.randn(nv, nj, B)] + [torch.randn(nj, B)] * 4 + [
+        [0] * nj] + [torch.randn(nv, nc, B) for _ in range(3)] + [
+        torch.randn(4, nc, B)] + [torch.randn(nc, B)] * 3 + [4, 3]
+    rows = chip_smoke.k3_to_rows(args)
+    assert rows[2].shape == (nj, nv, B) and rows[2].is_contiguous()
+    assert rows[8].shape == (nc, nv, B)
+    assert rows[11].shape == (nc, 4, B)
+    assert torch.equal(rows[2][5, 3], args[2][3, 5])
+    assert torch.equal(rows[11][7, 2], args[11][2, 7])
+    for i in (0, 1, 3, 7, 12, 15, 16):
+        assert rows[i] is args[i]

@@ -37,7 +37,9 @@ def test_every_module_of_the_port_is_checked():
     """The import check walks the package: the modules of each slice are in
     it (the staged step, domain randomization, the Newton kernel, the
     trainer, the geodesic fields, the off-policy learners, the per-env
-    step's solver, raycast and sensors, the interop and tooling layer)."""
+    step's solver, raycast and sensors, the interop and tooling layer, the
+    MJCF import with its meshes and native library, the batch-last
+    constraint assembly)."""
     mods = set(_modules())
     for m in ("envs.domain_randomization", "envs.geodesic",
               "physics.batchlast",
@@ -52,7 +54,8 @@ def test_every_module_of_the_port_is_checked():
               "core.cmd_vel", "teleop", "teleop.keyboard",
               "teleop.joystick", "spec.mjcf", "envs.spawner",
               "envs.gym_wrapper", "main_sim", "utils.visualize",
-              "rl.sb3_import"):
+              "rl.sb3_import", "native", "spec.mesh", "spec.mjcf_import",
+              "physics.constraint_bl"):
         assert f"mujoco_playground_tpu_torch.{m}" in mods, m
 
 

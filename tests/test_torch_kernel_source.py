@@ -19,8 +19,10 @@ pruned program); env slab
 1e-5, the goal angle through sin and cos; K2 1e-6, also with a per-env
 floor.  K1e takes the same tolerances on parameters with a +-2 cm floor
 offset; the plain physics step (``<0,0,0>``, K1 and K1e) the same as the
-others; K3 is held at qacc atol
-1e-3 plus rtol 1e-4 on the system of 3 compat-path steps.
+others, also for a robot with 8-vertex hulls (padded); K3 is held at qacc
+atol 1e-3 plus rtol 1e-4 on the system of 3 compat-path steps, in both of
+its input layouts, and its kernel-layout instantiation equals the
+row-major one bitwise on the same systems.
 """
 import ctypes
 import shutil
@@ -290,6 +292,84 @@ def test_newton_kernel_source_row_sets(host_libs, staged_system, case):
     assert got.shape == want.shape and bool(torch.isfinite(want).all())
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3,
                                rtol=1e-4)
+
+
+def _kernel_layout(args):
+    """K3's row-major arguments moved to the kernel layout: G (nv, nj, B),
+    Jn / Jt1 / Jt2 (nv, nc, B), c_aref (4, nc, B), contiguous."""
+    return [torch.movedim(a, 0, 1).contiguous() if i in (2, 8, 9, 10, 11)
+            else a for i, a in enumerate(args)]
+
+
+@pytest.mark.parametrize("case", ["staged", "all_rows", "disjoint", "b13"])
+def test_newton_kernel_source_kernel_layout(host_libs, staged_system, case):
+    """The kernel-layout instantiation on the same systems: bitwise the
+    row-major one's (the same values, other addresses), and within the
+    row-major test's tolerance of the twin (also when the pool overflows
+    and envs run their rows through it in chunks)."""
+    args, ws = (staged_system if case == "staged"
+                else _row_sets(*staged_system, case))
+    lib = host_libs["newton_kernel.cu"]
+    row_major = k3.launch_k3(lib, *args, ws, None)
+    got = k3.launch_k3(lib, *_kernel_layout(args), ws, None,
+                       pre_transposed=True)
+    assert torch.equal(got, row_major)
+    want = k3.newton_solve_plain(*_kernel_layout(args), warmstart=ws,
+                                 pre_transposed=True)
+    assert torch.equal(want, k3.newton_solve_plain(*args, warmstart=ws))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3,
+                               rtol=1e-4)
+    assert k3.newton_solve.launches_kernel_layout == 0
+
+
+def test_newton_kernel_checks_kernel_layout_inputs(host_libs, staged_system):
+    args, ws = staged_system
+    lib = host_libs["newton_kernel.cu"]
+    kl = _kernel_layout(args)
+    with pytest.raises(ValueError, match="shape"):      # row-major G
+        k3.launch_k3(lib, *(kl[:2] + [args[2]] + kl[3:]), ws, None,
+                     pre_transposed=True)
+    with pytest.raises(ValueError, match="shape"):      # row-major c_aref
+        k3.launch_k3(lib, *(kl[:11] + [args[11]] + kl[12:]), ws, None,
+                     pre_transposed=True)
+    with pytest.raises(ValueError, match="contiguous"):  # a moved view
+        k3.launch_k3(lib, *(kl[:8] + [torch.movedim(args[8], 0, 1)]
+                            + kl[9:]), ws, None, pre_transposed=True)
+    bad = list(kl)
+    bad[8] = torch.zeros((12, 73, B))
+    bad[9], bad[10] = bad[8], bad[8]
+    bad[11] = torch.zeros((4, 73, B))
+    bad[12] = bad[13] = bad[14] = torch.zeros((73, B))
+    with pytest.raises(ValueError, match="at most"):
+        k3.launch_k3(lib, *bad, ws, None, pre_transposed=True)
+
+
+def test_step_kernel_source_padded_hulls(host_libs, env):
+    """A robot whose chassis hulls have fewer vertices than the kernel holds
+    (the MJCF round trip's box corners, 8 of 36): the constant block pads
+    them with vertices no quadrant lists.  Held on the plain physics step
+    from poses pressed into the walls and floor, where the hulls touch."""
+    from mujoco_playground_tpu_torch.physics.model import make_model
+    from mujoco_playground_tpu_torch.spec import mjcf, mjcf_import, robot
+    spec = mjcf_import.from_mjcf(mjcf.to_mjcf(robot.ackermann_robot_v2()))
+    model = make_model(spec, env.scene, solver_iterations=4, ls_iterations=3,
+                       device="cpu")
+    assert model.chassis_hull_verts.shape[1] == 8
+    gen = torch.Generator().manual_seed(6)
+    ph = wall_poses(env, B, gen, sink=(0.01, 0.02))
+    q, v = _rows(ph.qpos), _rows(ph.qvel)
+    ws = _rows(ph.qacc_warmstart)
+    hull_rows = k1.contact_activity(model, q)[-16:].sum()
+    assert int(hull_rows) >= 4
+    lib = host_libs["step_kernel.cu"]
+    for _ in range(2):
+        ctrl = torch.rand((model.nu, B), generator=gen) * 2 - 1
+        args = (model, q, v, ctrl, ws, None, None, None, False)
+        want = k1.step_plain(*args)
+        got = k1.launch_k1(lib, *args, None)
+        for name, a, b in zip(TOL, got, want):
+            _compare(name, a, b, model)
+        q, v, ws = want[0], want[1], want[4]
 
 
 def test_newton_kernel_checks_its_inputs(host_libs, staged_system):
