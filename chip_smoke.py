@@ -120,7 +120,20 @@ ls_iterations=3)`` with uniform random actions:
   PointMazes, maze_flat and the open floor, 10 per-env steps each,
   finite; ``main_sim.main(["--headless", "--steps", "100"])`` on the card
   against the CPU, its odometry printout finite, its steps/s against
-  the 500 Hz pace.
+  the 500 Hz pace;
+* data parallelism over the env batch (``parallel_phase``): K1 and K2
+  against their twins at the ranks' local batches (2048 and 128 envs);
+  the README PPO recipe at 4096 envs and SAC/TD3 at the committed runs'
+  256 envs for two iterations through ``parallel.dryrun.train_run``,
+  without a process group and as an NCCL group of world size 1, in the
+  order A B B A (all four bitwise the same: parameters, env states, norm
+  statistics, replay buffers; the same K1 and K2 counts), with the slab
+  gather's ms; two gloo ranks of ``scripts/torch_multihost_train.py``
+  sharing the card (2048 / 128 envs each: equal hashes, the parameters
+  within ``PAR_PARAM_TOL`` of the one-process run, K1 once a step on each
+  rank); ``scripts/torch_scale_bench.py`` at N=1 and 16384 envs beside the
+  main path's rate, both 180 steps after 20 (N>=2 is not measured on a
+  one-card machine).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -317,6 +330,32 @@ UPDATE_TOL = dict(loss=1e-5, grad=1e-4, param=1e-6)
 # within 1e-6 (the card's kernels and torch's ops here repeat their bits,
 # so the runs should agree bitwise; the line says whether they do)
 RESUME_TOL = 1e-6
+# the data-parallel phase (parallel_phase): the README PPO recipe at 4096
+# global envs and SAC/TD3 at the committed runs' configuration (256 envs,
+# progress reward 3; one warm-up iteration of uniform actions), PAR_ITERS
+# iterations each, through scripts/torch_multihost_train.py's flags.  (a)
+# in this process: without a process group and as an NCCL group of world
+# size 1, in the order A B B A, which must be bitwise the same; (b) two
+# gloo ranks of the script sharing the card (NCCL refuses two ranks on one
+# device): their hashes equal, their parameters within PAR_PARAM_TOL of
+# the largest |parameter| of (a)'s one-process run
+# (tests/test_torch_parallel.py's PARAM_TOL: each rank's policy forward
+# runs on its own rows, which may round differently); (c)
+# scripts/torch_scale_bench.py at N=1, SCALE_ENVS envs and the main path's
+# step count.  Before all three, K1 and K2 against their twins at the
+# ranks' local batches, PAR_LOCAL_B
+PAR_ITERS = 2
+PAR_PPO = ["--algo", "ppo", "--num-envs", "4096", "--unroll", "32",
+           "--minibatches", "32", "--epochs", "10", "--normalize"]
+PAR_OFF = ["--algo", "sac", "td3", "--num-envs", "256",
+           "--progress-reward", "3"]
+PAR_COMMON = ["--solver-iterations", "4", "--ls-iterations", "3",
+              "--steps", str(PAR_ITERS), "--seed", str(SEED)]
+PAR_PARAM_TOL = 1e-5
+PAR_COLLECTIVE_REPS = 50
+PAR_LOCAL_B = (2048, 128)    # 4096 and 256 envs over 2 ranks
+SCALE_ENVS = B_MAIN
+SCALE_STEPS = STEPS - WARMUP
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores, at the 700 W power limit
@@ -2780,6 +2819,267 @@ def offpolicy_eval(card, dev, work):
         train_lib.evaluate_agent = evaluate_cli
 
 
+def load_script(name):
+    """A script of ``scripts/`` as a module (its ``main`` not run)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def local_batch_checks(env, b, gen, failures):
+    """K1 as the main path calls it and K2 against their twins at ``b``
+    envs (a rank's local batch): reset states, CHECK_STEPS chained steps,
+    and the lidar of the reset frames."""
+    from mujoco_playground_tpu_torch.ops import lidar as k2
+    from mujoco_playground_tpu_torch.ops import step as k1
+
+    def rows(x):
+        return x.reshape(x.shape[0], -1).T.contiguous()
+
+    model, dev = env.model, env.device
+    st = env.reset(b)
+    env_in = torch.cat([st.odom_ref.position[:, :2], st.goal,
+                        st.prev_goal_distance[:, None],
+                        env.reset_core(b).physics.qpos[:, :2]],
+                       -1).T.contiguous()
+    q, v, ws = rows(st.physics.qpos), rows(st.physics.qvel), rows(
+        st.physics.qacc_warmstart)
+    for step in range(CHECK_STEPS):
+        ctrl = torch.rand((3, b), generator=gen, device=dev) * 2 - 1
+        args = (model, q, v, ctrl, ws, env_in, env._env_statics(),
+                env._fresh_statics(), False)
+        got, want = k1.step_fused(*args), k1.step_plain(*args)
+        torch.cuda.synchronize()
+        check_k1(f"parallel B_local={b} step {step}", got, want, model,
+                 failures)
+        q, v, ws = want[0], want[1], want[4]
+    xp, xq = rows(st.physics.xpos), rows(st.physics.xquat)
+    check_k2(f"parallel B_local={b}", k2.lidar(model, xp, xq),
+             k2.lidar_plain(model, xp, xq), failures)
+
+
+def parallel_phase(card, dev, main_rate):
+    """Data parallelism over the env batch (module docstring, and the
+    PAR_* constants): K1 and K2 at the ranks' local batches; (a) NCCL at
+    world size 1 bitwise the run without a group, with the slab gather's
+    cost; (b) two gloo ranks of ``scripts/torch_multihost_train.py``
+    sharing the card; (c) the scaling bench at N=1."""
+    import torch.distributed as dist
+
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    from mujoco_playground_tpu_torch.parallel import (dryrun,
+                                                      initialize_distributed,
+                                                      mesh)
+    from mujoco_playground_tpu_torch.rl import replay_buffer as rb
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    failures = []
+    kenv = make_ackermann_env("maze", "umaze", solver_iterations=4,
+                              ls_iterations=3, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for b in PAR_LOCAL_B:
+        local_batch_checks(kenv, b, gen, failures)
+    del kenv
+    if failures:
+        fail(f"parallel: kernels disagree with their twins at the local "
+             f"batches: {failures}")
+    mh = load_script("torch_multihost_train")
+    runs = {}
+    for flags in (PAR_PPO, PAR_OFF):
+        args = mh.make_parser().parse_args(flags + PAR_COMMON)
+        for algo in args.algo:
+            runs[algo] = dryrun.algo_config(mh.config_of(args), algo)
+
+    def cpu_tree(run):
+        st = run["state"]
+        out = {"params": {k: v.detach().cpu() for k, v in
+                          mesh.named_tensors(st).items()},
+               "env_states": {k: v.cpu() for k, v in
+                              mh.env_state_tensors(st.env_states).items()}}
+        if getattr(st, "norm", None) is not None:
+            out["norm"] = {k: v.cpu() for k, v in
+                           dataclasses.asdict(st.norm).items()}
+        if "warm_buffer" in run:
+            for name, buf in (("warm_buffer", run["warm_buffer"]),
+                              ("buffer", st.buffer)):
+                out[name] = {k: (v.cpu() if isinstance(v, torch.Tensor)
+                                 else v)
+                             for k, v in rb.state_dict(buf).items()}
+        return out
+
+    # (a) NCCL at world size 1 against no process group, A B B A
+    init = f"tcp://127.0.0.1:{dryrun.free_port()}"
+    single, gather_ms = {}, None
+    order = ("no group", "NCCL world size 1", "NCCL world size 1",
+             "no group")
+    for algo, cfg in runs.items():
+        got = []
+        for label in order:
+            if label != "no group" and not dist.is_initialized():
+                if not initialize_distributed(init, 1, 0, device=dev):
+                    fail("parallel: initialize_distributed returned False")
+                if dist.get_backend() != "nccl":
+                    fail(f"parallel: backend {dist.get_backend()}")
+            shard = (mesh.make_mesh(cfg.num_envs) if label != "no group"
+                     else None)
+            reset_counts()
+            run = dryrun.train_run(algo, cfg, PAR_ITERS, shard, dev)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got.append((cpu_tree(run), counts, run["seconds"],
+                        dryrun.param_sha256(run["state"])))
+            iters = PAR_ITERS + (0 if algo == "ppo" else 1)
+            steps = cfg.unroll_length if algo == "ppo" else 4
+            want = {"K1": 3 + iters * steps, "K1e": 0, "K2": 1, "K3": 0,
+                    "K2f": 0}
+            if counts != want:
+                fail(f"parallel (a) {algo} {label}: launches {counts}, "
+                     f"expected {want} (the env's settle, one K1 a "
+                     f"rollout or collect step, K2 at the first reset)")
+            if shard is not None and algo == "ppo" and gather_ms is None:
+                # the one collective of an iteration alone, at this run's
+                # shapes: the gather of the slab after GAE
+                slab = {k: torch.ones((cfg.unroll_length, cfg.num_envs, w),
+                                      device=dev)
+                        for k, w in (("obs", 79), ("action", 2), ("logp", 1),
+                                     ("value", 1), ("reward", 1),
+                                     ("terminated", 1), ("done", 1),
+                                     ("raw_obs", 79), ("adv", 1),
+                                     ("ret", 1))}
+                floats = sum(v.numel() for v in slab.values())
+                gather_ms = cuda_ms(
+                    lambda: mesh.all_gather_env(slab, shard, dim=1),
+                    PAR_COLLECTIVE_REPS)
+                print(f"parallel (a) NCCL world size 1, all_gather_env of "
+                      f"the PPO slab ({floats} floats): {gather_ms:.4f} ms "
+                      f"per call ({card})")
+                del slab
+            del run
+        ref = got[0]
+        same = all(_tree_diff(ref[0], g[0])[1] and g[3] == ref[3]
+                   and g[1] == ref[1] for g in got[1:])
+        print(f"parallel (a) {algo} at {cfg.num_envs} envs, {PAR_ITERS} "
+              f"iterations, runs {' / '.join(order)}: all bitwise the same "
+              f"(parameters, env states"
+              f"{', norm statistics' if 'norm' in ref[0] else ''}"
+              f"{', replay buffer after the warm-up and at the end' if 'buffer' in ref[0] else ''}"
+              f"): {same}; sha256 {ref[3][:16]}; launches {ref[1]}; s per "
+              f"iteration "
+              f"{' / '.join(str([round(x, 4) for x in g[2]]) for g in got)}"
+              f" ({card})")
+        if not same:
+            fail(f"parallel (a) {algo}: world size 1 departs from the run "
+                 f"without a group")
+        single[algo] = ref[0]
+    dist.destroy_process_group()
+
+    # (b) two gloo ranks of the script sharing the card
+    env = dict(os.environ, PYTHONPATH=root)
+    for flags in (PAR_PPO, PAR_OFF):
+        init = f"tcp://127.0.0.1:{dryrun.free_port()}"
+        dump = os.path.join(work, "two")
+        procs, logs = [], []
+        for r in range(2):
+            logs.append(os.path.join(work, f"{flags[1]}_rank{r}.log"))
+            os.makedirs(work, exist_ok=True)
+            with open(logs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(root, "scripts",
+                                                  "torch_multihost_train.py")]
+                    + flags + PAR_COMMON
+                    + ["--init-method", init, "--world-size", "2", "--rank",
+                       str(r), "--backend", "gloo", "--device", dev.type,
+                       "--dump", dump], cwd=root, env=env, stdout=f,
+                    stderr=subprocess.STDOUT))
+        for p in procs:
+            try:
+                p.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                fail(f"parallel (b): the ranks of {flags[1]} timed out")
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                with open(log) as f:
+                    fail(f"parallel (b): {log} exited {p.returncode}:\n"
+                         f"{f.read()[-3000:]}")
+    for algo, cfg in runs.items():
+        ranks = [torch.load(os.path.join(work, "two", f"{algo}_rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        res = [d["result"] for d in ranks]
+        want = single[algo]["params"]
+        scale = max(float(v.abs().max()) for v in want.values())
+        err = max(float((ranks[0]["params"][k] - v).abs().max())
+                  for k, v in want.items())
+        env_err = max(float((torch.cat([ranks[0]["env_states"][k],
+                                        ranks[1]["env_states"][k]]).double()
+                             - v.double()).abs().max())
+                      for k, v in single[algo]["env_states"].items())
+        iters = PAR_ITERS + (0 if algo == "ppo" else 1)
+        steps = cfg.unroll_length if algo == "ppo" else 4
+        k1_want = 3 + iters * steps
+        print(f"parallel (b) {algo}: 2 gloo ranks x "
+              f"{res[0]['local_envs']} envs on one card, sha256 "
+              f"{res[0]['param_sha256'][:16]} / {res[1]['param_sha256'][:16]}"
+              f"; largest parameter difference from (a)'s one-process run "
+              f"{err:.3e} (tol {PAR_PARAM_TOL:g} x {scale:.4f}); largest "
+              f"env-state difference {env_err:.3e}; launches "
+              f"{res[0]['launches']} / {res[1]['launches']}; s per "
+              f"iteration rank 0 "
+              f"{[round(x, 4) for x in res[0]['seconds_per_iteration']]}, "
+              f"rank 1 "
+              f"{[round(x, 4) for x in res[1]['seconds_per_iteration']]} "
+              f"({card})")
+        if res[0]["param_sha256"] != res[1]["param_sha256"]:
+            fail(f"parallel (b) {algo}: the ranks' parameters differ")
+        if not err <= PAR_PARAM_TOL * scale:
+            fail(f"parallel (b) {algo}: the 2-rank parameters depart from "
+                 f"the one-process run")
+        if [r["local_envs"] for r in res] != [cfg.num_envs // 2] * 2:
+            fail(f"parallel (b) {algo}: local envs {res}")
+        for r in res:
+            if r["launches"] != {"K1": k1_want, "K2": 1}:
+                fail(f"parallel (b) {algo}: rank {r['rank']} launches "
+                     f"{r['launches']}, expected K1 {k1_want} (one a "
+                     f"step), K2 1")
+
+    # (c) the scaling bench at N=1
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts", "torch_scale_bench.py"),
+         "--envs-per-gpu", str(SCALE_ENVS), "--steps", str(SCALE_STEPS)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"parallel (c): torch_scale_bench exited {out.returncode}:\n"
+             f"{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    bench = json.loads(next(x for x in lines if x.startswith("{")))
+    print(f"parallel (c) torch_scale_bench N={bench['ranks']}: "
+          f"{bench['env_steps_per_s']:.0f} env-steps/s at {bench['envs']} "
+          f"envs, {bench['steps']} steps after {bench['warmup']} "
+          f"({bench['card']}); the main path in this call, the same loop "
+          f"in this process, {main_rate:.0f} env-steps/s ({card}); "
+          f"launches {bench['launches']}")
+    for x in lines:
+        if x.startswith("N>=2"):
+            print(f"parallel (c) {x}")
+    if bench["ranks"] != 1 or not bench["finite"]:
+        fail(f"parallel (c): {bench}")
+    if bench["launches"] != {"K1": bench["warmup"] + SCALE_STEPS, "K2": 1}:
+        fail(f"parallel (c): launches {bench['launches']}")
+    if torch.cuda.device_count() < 2 and not any(
+            x.startswith("N>=2: not measured") for x in lines):
+        fail("parallel (c): the bench did not say that N>=2 is not "
+             "measured")
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one NVIDIA GPU")
@@ -3289,6 +3589,9 @@ def main():
 
     # -- phase 9: the interop and tooling layer ----------------------------
     tooling_phase(card, dev, step_ms)
+
+    # -- phase 10: data parallelism over the env batch ---------------------
+    parallel_phase(card, dev, B_MAIN / step_ms * 1e3)
 
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",

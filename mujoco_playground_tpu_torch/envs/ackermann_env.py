@@ -233,13 +233,20 @@ class AckermannEnv:
 
     # ------------------------------------------------------------------ reset
     def reset_core(self, num_envs: int,
-                   generator: Optional[torch.Generator] = None) -> EnvState:
+                   generator: Optional[torch.Generator] = None,
+                   rows: slice = slice(None)) -> EnvState:
         """A batch of fresh states without their observation (obs fields
         are zero placeholders): start and goal cells (start != goal) with
         +-cell_noise cell noise in a maze, a random goal on the open
         floor.  Under ``spawn_heading_noise`` each maze spawn is also
         turned by a yaw drawn uniformly from +-spawn_heading_noise.  Draws
-        from ``generator`` (default: the env's own)."""
+        from ``generator`` (default: the env's own).
+
+        ``rows`` (a slice of ``range(num_envs)``, a rank's share of a
+        sharded batch) builds only those envs: the draws are still made
+        for all ``num_envs``, in the same order and shapes, so the
+        generator moves as one process's does and the rows are bitwise
+        that process's."""
         B, dtype, dev = num_envs, self.dtype, self.device
         g = self.generator if generator is None else generator
         if self.arena == "maze":
@@ -254,11 +261,14 @@ class AckermannEnv:
             lim = self.config.spawn_heading_noise
             yaw = (torch.rand(B, generator=g, device=dev, dtype=dtype)
                    * (2 * lim) - lim) if lim else None
+            gi, si, noise = gi[rows], si[rows], noise[rows]
+            yaw = None if yaw is None else yaw[rows]
             return self.maze_core(self._free_cells[si] + noise[:, :2] * cell,
                                   self._free_cells[gi] + noise[:, 2:] * cell,
                                   gi, yaw)
         lo, hi = self.config.goal_distance_range
-        u = torch.rand((B, 2), generator=g, device=dev, dtype=dtype)
+        u = torch.rand((B, 2), generator=g, device=dev, dtype=dtype)[rows]
+        B = u.shape[0]
         dist = lo + (hi - lo) * u[:, 0]
         ang = 2 * math.pi * u[:, 1]
         goal = torch.stack([dist * torch.cos(ang), dist * torch.sin(ang)],

@@ -19,6 +19,17 @@ Randomness comes from the train state's ``torch.Generator`` (action noise,
 shuffles, the staggered episode steps) and the env's own generator (reset
 samples).  Neither phase reads a value of the card back to the host: the
 metrics stay tensors until the caller reads them.
+
+With an ``EnvShard`` (``parallel/mesh.py``) the iteration is one rank's
+part of a data-parallel run over the global batch ``config.num_envs``:
+the rank steps its rows of the batch; every draw is made at the global
+batch, as one process makes it, and the rank keeps its rows, so the
+generators of all ranks stay in step; the rollout slab is all-gathered
+after GAE, so the normalization statistics are those of one process, and
+every rank runs one process's update on it (the same shuffles, the same
+minibatches), so the parameters stay equal on every rank with no gradient
+collective.  Without a shard the run is the whole batch
+(``EnvShard(config.num_envs)``).
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from mujoco_playground_tpu_torch.parallel import mesh
 from mujoco_playground_tpu_torch.rl import networks
 from mujoco_playground_tpu_torch.rl.config import RLConfig
 
@@ -186,20 +198,26 @@ class TrainState:
 
 def init_train_state(env, network: networks.ActorCritic, config: RLConfig,
                      generator: torch.Generator,
-                     stagger_resets: bool = True) -> TrainState:
+                     stagger_resets: bool = True,
+                     shard: Optional[mesh.EnvShard] = None) -> TrainState:
     """A fresh train state: the optimizer over ``network`` (already on the
     env's device), a batched reset from the env's generator, and, with
     ``stagger_resets``, each env's step counter drawn from ``generator``
     in [0, max_episode_steps): a freshly reset batch would otherwise
     truncate all envs on the same step forever, leaving most rollouts
-    without any episode boundary."""
-    env_states = env.reset(config.num_envs)
+    without any episode boundary.  With ``shard`` the env states are the
+    rank's rows of those of one process (drawn at the global batch), the
+    network's parameters are rank 0's, and the norm statistics keep the
+    per-env returns of the whole batch."""
+    shard = shard or mesh.EnvShard(config.num_envs)
+    env_states = mesh.shard_env(env, shard).reset(config.num_envs)
+    mesh.broadcast_(list(network.parameters()), shard)
     device = env_states.obs.device
     if stagger_resets:
-        env_states = env_states.replace(steps=torch.randint(
+        env_states = env_states.replace(steps=shard.take(torch.randint(
             0, env.config.max_episode_steps, (config.num_envs,),
             generator=generator, device=device,
-            dtype=env_states.steps.dtype))
+            dtype=env_states.steps.dtype)))
     norm = (init_norm_state(env.obs_size, config.num_envs, device)
             if (config.normalize_obs or config.normalize_reward) else None)
     return TrainState(network=network,
@@ -308,15 +326,19 @@ def make_train_fns(env, config: RLConfig):
     return step.rollout_gae, step.update
 
 
-def make_train_step(env, config: RLConfig) -> Callable:
+def make_train_step(env, config: RLConfig,
+                    shard: Optional[mesh.EnvShard] = None) -> Callable:
     """Returns ``train_step(ts) -> (ts, metrics)``, one whole iteration.
 
     The callable also exposes ``.rollout_gae`` and ``.update``, the two
     phases (see make_train_fns).  ``ts`` is updated in place (its network,
-    optimizer and norm statistics) and returned.
+    optimizer and norm statistics) and returned.  ``shard``: one rank of a
+    data-parallel run (module docstring; ``ts`` from ``init_train_state``
+    with the same shard).
     """
-    T = config.unroll_length
-    B = config.num_envs
+    shard = shard or mesh.EnvShard(config.num_envs)
+    env = mesh.shard_env(env, shard)
+    T, B = config.unroll_length, shard.local_batch
     use_obs_norm = config.normalize_obs
     use_rew_norm = config.normalize_reward
 
@@ -337,6 +359,10 @@ def make_train_step(env, config: RLConfig) -> Callable:
         giving a ``reset_core`` batch) replaces the env's reset samples of
         step t.  Returns ``(ts, (batch, advantages, returns), metrics)``,
         the batch a dict of ``TRANSITION_FIELDS`` flattened to (T*B, ...).
+
+        B is the shard's; ``eps`` and ``fresh`` give the rank's rows; the
+        returned batch and the metrics are those of the whole slab,
+        gathered from every rank (T * num_envs rows).
         """
         net, norm = ts.network, ts.norm
         states = ts.env_states
@@ -345,8 +371,12 @@ def make_train_step(env, config: RLConfig) -> Callable:
             obs = normalize_obs(norm, states.obs) if use_obs_norm \
                 else states.obs
             mean, log_std, value = net(obs)
-            action, logp = networks.sample_action(
-                mean, log_std, ts.generator, None if eps is None else eps[t])
+            # the one-process draw at the global batch, the rank's rows
+            step_eps = eps[t] if eps is not None else shard.take(torch.randn(
+                (config.num_envs,) + mean.shape[1:], generator=ts.generator,
+                dtype=mean.dtype, device=mean.device))
+            action, logp = networks.sample_action(mean, log_std,
+                                                  eps=step_eps)
             cols["raw_obs"].append(states.obs)
             states = env.step_autoreset_batch(
                 states, torch.clamp(action, -1.0, 1.0),
@@ -368,7 +398,13 @@ def make_train_step(env, config: RLConfig) -> Callable:
                    tr["terminated"], tr["done"], config.gamma,
                    config.gae_lambda)
         rets = advs + tr["value"]
-        batch = {k: tr[k].reshape((T * B,) + tr[k].shape[2:])
+        # every rank's slab, (T, num_envs, ...) in the one-process order
+        tr = mesh.all_gather_env(
+            {**{k: tr[k] for k in TRANSITION_FIELDS + ("raw_obs",)},
+             "adv": advs, "ret": rets}, shard, dim=1)
+        advs, rets = tr["adv"], tr["ret"]
+        n = T * config.num_envs
+        batch = {k: tr[k].reshape((n,) + tr[k].shape[2:])
                  for k in TRANSITION_FIELDS}
         if use_obs_norm or use_rew_norm:
             norm = update_norm_state(norm, tr["raw_obs"], tr["reward"],
@@ -377,14 +413,16 @@ def make_train_step(env, config: RLConfig) -> Callable:
                        successes=tr["terminated"].sum(),
                        mean_reward=tr["reward"].mean())
         ts = ts.replace(env_states=states, norm=norm)
-        return ts, (batch, advs.reshape(T * B), rets.reshape(T * B)), metrics
+        return ts, (batch, advs.reshape(n), rets.reshape(n)), metrics
 
     def update(ts: TrainState, batch_data, shuffles=None):
         """Phase 2: PPO epochs x minibatches.  ``shuffles`` (one
         ``(perm, shift)`` per epoch, ``shift`` None for a per-row
         shuffle) replaces the shuffle draws from ``ts.generator``.
         Returns ``(ts, metrics)``, the metrics the mean of each loss part
-        over all minibatches."""
+        over all minibatches.  ``batch_data`` is the whole slab, as
+        ``rollout_gae`` returns it on every rank, so every rank draws the
+        same shuffles and takes the same steps."""
         batch, advs, rets = batch_data
         n = advs.shape[0]
         mb = config.num_minibatches
@@ -402,7 +440,8 @@ def make_train_step(env, config: RLConfig) -> Callable:
                     {k: v[i] for k, v in sb.items()}, sa[i], sr[i]))
         means = torch.stack(auxs).mean(0)
         metrics = {k: means[j] for j, k in enumerate(AUX_KEYS)}
-        return ts.replace(global_step=ts.global_step + T * B), metrics
+        return (ts.replace(global_step=ts.global_step
+                           + T * config.num_envs), metrics)
 
     def train_step(ts: TrainState):
         ts, batch_data, roll_metrics = rollout_gae(ts)

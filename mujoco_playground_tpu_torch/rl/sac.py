@@ -15,6 +15,16 @@ target's and the actor's noise) and the env's own (resets); every draw can
 be injected instead, so that tests can feed the JAX package's draws.
 Nothing is read back to the host: the metrics stay tensors until the
 caller reads them.
+
+With an ``EnvShard`` (``parallel/mesh.py``) the learner is one rank of a
+data-parallel run with the JAX package's layout: the env batch is
+sharded, the networks and the replay buffer replicated.  The rank steps
+its rows of the global batch ``config.num_envs``; its collect draws are
+made at the global batch and it keeps its rows; each collect step's chunk
+is all-gathered and inserted on every rank in the global env order, so
+every rank samples the same rows and the gradient steps, replicated,
+need no collective.  Without a shard the run is the whole batch
+(``EnvShard(config.num_envs)``).
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
+from mujoco_playground_tpu_torch.parallel import mesh
 from mujoco_playground_tpu_torch.rl import replay_buffer as rb
 from mujoco_playground_tpu_torch.rl.config import RLConfig
 from mujoco_playground_tpu_torch.rl.networks import dense_lecun
@@ -201,7 +212,8 @@ class SACState:
 
 
 def collect_fn(env, config: RLConfig, collect_steps: int, policy: Callable,
-               random_actions: bool) -> Callable:
+               random_actions: bool,
+               shard: Optional[mesh.EnvShard] = None) -> Callable:
     """Returns ``collect(state, draws=None, fresh=None) -> (state,
     mean_reward)``: ``collect_steps`` auto-reset env steps, each inserted
     into the buffer as one (B, ...) chunk.  ``policy(state, obs, draw)``
@@ -209,8 +221,15 @@ def collect_fn(env, config: RLConfig, collect_steps: int, policy: Callable,
     [-1, 1).  ``draws`` ((collect_steps, B, action): the uniform actions,
     or the policy's standard-normal draws) replaces the draws from the
     state's generator, and ``fresh`` (a callable ``(t, states)`` giving a
-    ``reset_core`` batch) the env's reset samples of step t."""
+    ``reset_core`` batch) the env's reset samples of step t.
+
+    ``shard`` (module docstring; default the whole batch; ``env`` then
+    as ``mesh.shard_env`` gives it): ``draws`` and ``fresh`` give the
+    rank's rows; a drawn action or noise is drawn at
+    the global batch and the rank keeps its rows; the chunk inserted, and
+    the mean reward, are every rank's, gathered."""
     B, A = config.num_envs, env.action_size
+    shard = shard or mesh.EnvShard(B)
 
     @torch.no_grad()
     def collect(state, draws=None, fresh=None):
@@ -218,20 +237,22 @@ def collect_fn(env, config: RLConfig, collect_steps: int, policy: Callable,
         rewards = []
         for t in range(collect_steps):
             obs = states.obs
-            draw = None if draws is None else draws[t]
-            if random_actions:
-                action = (torch.rand((B, A), generator=state.generator,
-                                     dtype=obs.dtype, device=obs.device)
-                          * 2.0 - 1.0) if draw is None else draw
-            else:
-                action = policy(state, obs, draw)
+            # the one-process draw at the global batch, the rank's rows
+            draw = draws[t] if draws is not None else shard.take(
+                torch.rand((B, A), generator=state.generator,
+                           dtype=obs.dtype, device=obs.device) * 2.0 - 1.0
+                if random_actions else
+                torch.randn((B, A), generator=state.generator,
+                            dtype=obs.dtype, device=obs.device))
+            action = draw if random_actions else policy(state, obs, draw)
             states = env.step_autoreset_batch(
                 states, action,
                 fresh=None if fresh is None else fresh(t, states))
-            buffer = rb.insert(buffer, obs, action, states.reward,
-                               states.final_obs,
-                               states.terminated.to(buffer.reward.dtype))
-            rewards.append(states.reward.mean())
+            chunk = mesh.all_gather_env(dict(zip(rb.FIELDS, (
+                obs, action, states.reward, states.final_obs,
+                states.terminated.to(buffer.reward.dtype)))), shard)
+            buffer = rb.insert(buffer, *chunk.values())
+            rewards.append(chunk["reward"].mean())
         return (state.replace(env_states=states, buffer=buffer),
                 torch.stack(rewards).mean())
 
@@ -239,16 +260,20 @@ def collect_fn(env, config: RLConfig, collect_steps: int, policy: Callable,
 
 
 def make_sac(env, config: RLConfig, collect_steps: int = 4,
-             grad_steps: int = 4):
+             grad_steps: int = 4, shard: Optional[mesh.EnvShard] = None):
     """Returns ``(init, make_train_step)`` for SAC on the vectorized env.
 
     ``init()`` gives a fresh ``SACState`` (its generator on the env's
     device seeded ``config.seed``); ``make_train_step(random_actions=
-    False)`` gives ``train_step(state, ...) -> (state, metrics)``."""
+    False)`` gives ``train_step(state, ...) -> (state, metrics)``.
+    ``shard``: one rank of a data-parallel run (module docstring; default
+    the whole batch); its ``init`` takes the parameters from rank 0."""
     hidden = tuple(config.offpolicy_hidden_sizes)
     lr = config.sac_learning_rate
     target_entropy = -float(env.action_size)
     B, batch_size = config.num_envs, config.sac_batch_size
+    shard = shard or mesh.EnvShard(B)
+    env = mesh.shard_env(env, shard)
 
     def init() -> SACState:
         dev = env.device
@@ -257,7 +282,7 @@ def make_sac(env, config: RLConfig, collect_steps: int = 4,
                                   g).to(dev)
         q = TwinQ(env.obs_size, env.action_size, hidden, g).to(dev)
         log_alpha = nn.Parameter(torch.zeros((), device=dev))
-        return SACState(
+        state = SACState(
             actor=actor, q=q, q_target=target_copy(q), log_alpha=log_alpha,
             actor_opt=torch.optim.Adam(actor.parameters(), lr=lr),
             q_opt=torch.optim.Adam(q.parameters(), lr=lr),
@@ -267,6 +292,8 @@ def make_sac(env, config: RLConfig, collect_steps: int = 4,
             env_states=env.reset(B),
             generator=torch.Generator(device=dev).manual_seed(config.seed),
             env_generator=getattr(env, "generator", None))
+        mesh.broadcast_(list(mesh.named_tensors(state).values()), shard)
+        return state
 
     def policy(state, obs, eps):
         mean, log_std = state.actor(obs)
@@ -313,7 +340,7 @@ def make_sac(env, config: RLConfig, collect_steps: int = 4,
 
     def make_train_step(random_actions: bool = False) -> Callable:
         collect = collect_fn(env, config, collect_steps, policy,
-                             random_actions)
+                             random_actions, shard)
 
         def train_step(state: SACState, collect_draws=None, fresh=None,
                        idx=None, eps_target=None, eps_actor=None):

@@ -6,8 +6,9 @@ clipped to [-1, 1]), twin Q critics (``sac.TwinQ``), target policy
 smoothing (noise 0.2 clipped to +-0.5) and delayed policy updates: the
 actor and both targets move only on every ``td3_policy_delay``-th critic
 update.  The update count is a host int that carries across
-``train_step`` calls and checkpoints.  The iteration, the initialization
-and the injected draws are SAC's (``rl/sac.py``).
+``train_step`` calls and checkpoints.  The iteration, the initialization,
+the injected draws and the data-parallel layout (``shard``) are SAC's
+(``rl/sac.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
+from mujoco_playground_tpu_torch.parallel import mesh
 from mujoco_playground_tpu_torch.rl import replay_buffer as rb
 from mujoco_playground_tpu_torch.rl.config import RLConfig
 from mujoco_playground_tpu_torch.rl.networks import dense_lecun
@@ -87,7 +89,8 @@ class TD3State:
 
 
 def make_td3(env, config: RLConfig, collect_steps: int = 4,
-             grad_steps: int = 4, exploration_noise: float = 0.1):
+             grad_steps: int = 4, exploration_noise: float = 0.1,
+             shard: Optional[mesh.EnvShard] = None):
     """Returns ``(init, make_train_step)`` for TD3, as ``sac.make_sac``.
     ``train_step``'s ``collect_draws`` are the exploration noise's standard
     normal draws (uniform actions in the warm-up) and ``eps_target`` the
@@ -95,6 +98,8 @@ def make_td3(env, config: RLConfig, collect_steps: int = 4,
     hidden = tuple(config.offpolicy_hidden_sizes)
     lr = config.td3_learning_rate
     B, batch_size = config.num_envs, config.sac_batch_size
+    shard = shard or mesh.EnvShard(B)
+    env = mesh.shard_env(env, shard)
 
     def init() -> TD3State:
         dev = env.device
@@ -102,7 +107,7 @@ def make_td3(env, config: RLConfig, collect_steps: int = 4,
         actor = DeterministicActor(env.obs_size, env.action_size, hidden,
                                    g).to(dev)
         q = TwinQ(env.obs_size, env.action_size, hidden, g).to(dev)
-        return TD3State(
+        state = TD3State(
             actor=actor, actor_target=target_copy(actor), q=q,
             q_target=target_copy(q),
             actor_opt=torch.optim.Adam(actor.parameters(), lr=lr),
@@ -112,13 +117,12 @@ def make_td3(env, config: RLConfig, collect_steps: int = 4,
             env_states=env.reset(B),
             generator=torch.Generator(device=dev).manual_seed(config.seed),
             env_generator=getattr(env, "generator", None))
+        mesh.broadcast_(list(mesh.named_tensors(state).values()), shard)
+        return state
 
     def policy(state, obs, eps):
-        action = state.actor(obs)
-        if eps is None:
-            eps = torch.randn(action.shape, generator=state.generator,
-                              dtype=action.dtype, device=action.device)
-        return torch.clamp(action + exploration_noise * eps, -1.0, 1.0)
+        return torch.clamp(state.actor(obs) + exploration_noise * eps,
+                           -1.0, 1.0)
 
     def gradient_step(st: TD3State, batch, eps_target=None):
         """One update on a sampled ``batch``: the Q step, then, on every
@@ -153,7 +157,7 @@ def make_td3(env, config: RLConfig, collect_steps: int = 4,
 
     def make_train_step(random_actions: bool = False) -> Callable:
         collect = collect_fn(env, config, collect_steps, policy,
-                             random_actions)
+                             random_actions, shard)
 
         def train_step(state: TD3State, collect_draws=None, fresh=None,
                        idx=None, eps_target=None):

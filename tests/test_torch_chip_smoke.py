@@ -193,3 +193,26 @@ def test_k3_to_rows_moves_the_kernel_layout():
     assert torch.equal(rows[11][7, 2], args[11][2, 7])
     for i in (0, 1, 3, 7, 12, 15, 16):
         assert rows[i] is args[i]
+
+
+def test_parallel_phase_runs_the_recipes():
+    """The data-parallel phase's flags, read by
+    ``scripts/torch_multihost_train.py``'s parser, give the README's PPO
+    recipe at 4096 envs and the committed SAC/TD3 runs' configuration."""
+    from mujoco_playground_tpu_torch.parallel import dryrun
+    mh = chip_smoke.load_script("torch_multihost_train")
+    ppo = mh.config_of(mh.make_parser().parse_args(
+        chip_smoke.PAR_PPO + chip_smoke.PAR_COMMON))
+    assert (ppo.num_envs, ppo.unroll_length, ppo.num_minibatches,
+            ppo.ppo_epochs, ppo.hidden_sizes) == (4096, 32, 32, 10, (64, 64))
+    assert ppo.normalize_obs and ppo.normalize_reward
+    args = mh.make_parser().parse_args(chip_smoke.PAR_OFF
+                                       + chip_smoke.PAR_COMMON)
+    assert args.algo == ["sac", "td3"]
+    off = dryrun.algo_config(mh.config_of(args), "sac")
+    assert (off.num_envs, off.progress_reward, off.sac_buffer_size,
+            off.sac_batch_size, off.offpolicy_hidden_sizes) == (
+        256, 3.0, 100000, 256, (256, 256))
+    for cfg in (ppo, off):
+        assert (cfg.env_type, cfg.maze_id, cfg.solver_iterations,
+                cfg.ls_iterations) == ("maze", "umaze", 4, 3)

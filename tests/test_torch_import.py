@@ -3,6 +3,7 @@ JAX package, its sources import neither, and its entry points refuse to
 run without a CUDA device unless the caller asks for the CPU."""
 import pathlib
 import re
+import socket
 import subprocess
 import sys
 
@@ -11,6 +12,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "mujoco_playground_tpu_torch"
+# the port's multi-process runners (scripts/, beside the JAX package's)
+SCRIPTS = [ROOT / "scripts" / "torch_multihost_train.py",
+           ROOT / "scripts" / "torch_scale_bench.py",
+           ROOT / "scripts" / "torch_parallel_ab.py"]
 
 
 def _modules():
@@ -23,6 +28,11 @@ def _modules():
 def test_port_imports_without_jax():
     code = "\n".join(
         [f"import {m}" for m in _modules()]
+        + ["import importlib.util"]
+        + [f"spec = importlib.util.spec_from_file_location('s{i}', "
+           f"{str(p)!r})\n"
+           "spec.loader.exec_module(importlib.util.module_from_spec(spec))"
+           for i, p in enumerate(SCRIPTS)]
         + ["import sys",
            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
            "('jax', 'flax', 'optax', 'orbax', 'mujoco_playground_tpu'))",
@@ -39,7 +49,7 @@ def test_every_module_of_the_port_is_checked():
     trainer, the geodesic fields, the off-policy learners, the per-env
     step's solver, raycast and sensors, the interop and tooling layer, the
     MJCF import with its meshes and native library, the batch-last
-    constraint assembly)."""
+    constraint assembly, data parallelism)."""
     mods = set(_modules())
     for m in ("envs.domain_randomization", "envs.geodesic",
               "physics.batchlast",
@@ -55,14 +65,15 @@ def test_every_module_of_the_port_is_checked():
               "teleop.joystick", "spec.mjcf", "envs.spawner",
               "envs.gym_wrapper", "main_sim", "utils.visualize",
               "rl.sb3_import", "native", "spec.mesh", "spec.mjcf_import",
-              "physics.constraint_bl"):
+              "physics.constraint_bl", "parallel", "parallel.distributed",
+              "parallel.mesh", "parallel.dryrun"):
         assert f"mujoco_playground_tpu_torch.{m}" in mods, m
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b"
                          r"|mujoco_playground_tpu\.\w", re.M)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + SCRIPTS
     hits = [f"{p}: {m.group(0)}" for p in files
             for m in pattern.finditer(p.read_text())]
     assert not hits, hits
@@ -103,3 +114,25 @@ def test_tooling_entry_points_need_cuda_unless_asked_for_cpu(name):
         pytest.skip("a CUDA device exists here: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         _tooling_entry_points()[name]()
+
+
+def test_bad_rendezvous_raises():
+    """A rendezvous that no peer joins raises; it never falls back to one
+    process (False is kept for a run that asks for no group at all)."""
+    import torch.distributed as dist
+
+    from mujoco_playground_tpu_torch.parallel import initialize_distributed
+    assert initialize_distributed() is False
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with pytest.raises(RuntimeError):
+        initialize_distributed(f"tcp://127.0.0.1:{port}", 2, 0,
+                               device="cpu", timeout_s=2)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError):
+        initialize_distributed(f"tcp://127.0.0.1:{port}", 2, device="cpu")
+    if not dist.is_nccl_available():    # a CPU build: NCCL is missing
+        with pytest.raises(RuntimeError, match="NCCL"):
+            initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0,
+                                   backend="nccl", device="cpu")
