@@ -22,7 +22,7 @@ ls_iterations=3)`` with uniform random actions:
   K2 with each env's floor on the pre-step physics, K2 on the fresh
   batch); path S (two physics substeps, 50 steps: K1 ``<0,0,0>`` and the
   fused K1 once each a step); path C, the default randomization over the
-  compat manifolds (100 steps: K3 once and K2 with each env's floor twice
+  compat manifolds (60 steps: K3 once and K2 with each env's floor twice
   a step; identical starts and actions spread qvel), and at 1024 envs on
   the default manifolds with per-env joint ranges (20 steps, K3 every
   step); path A with ``spawn_heading_noise`` (50 steps: K1e
@@ -50,7 +50,7 @@ ls_iterations=3)`` with uniform random actions:
   graph (A B B A), with both instantiations' ptxas lines and occupancy;
 * the trainer: ``rl.train.main`` with the README's PPO recipe at 4096
   umaze envs (``--algo ppo --maze umaze --num-envs 4096 --normalize
-  --anneal-lr``) for 3 iterations, K1 on every rollout and evaluation step
+  --anneal-lr``) for 1 iteration, K1 on every rollout and evaluation step
   and K2 at every batched reset; then a resume for one more iteration, a
   resumed run held against a straight one, one minibatch update on the
   card held against the same update on the CPU (and, as a control that
@@ -58,7 +58,7 @@ ls_iterations=3)`` with uniform random actions:
   and the iteration's times;
 * the reference-compat trainer (``compat_trainer_phase``):
   ``rl.train.main`` with ``--reference-compat`` at 4096 envs on the open
-  floor for 3 iterations and a resume of one, K1 ``<0,0,0>`` exactly once
+  floor for 1 iteration and a resume of one, K1 ``<0,0,0>`` exactly once
   per rollout and evaluation step and K2 twice per rollout step, the
   rollouts' mean reward per step in [-52, -49] (every step pays the -50
   collision penalty there), and training env-steps/s;
@@ -86,8 +86,9 @@ ls_iterations=3)`` with uniform random actions:
   second chunk's env-steps/s by CUDA events and by the loop's own
   ``steps_per_second``; one profiled iteration (collect against the
   gradient steps: launches, device busy, idle share) and its host syncs,
-  which must be none; a resume for one more chunk held bitwise against a
-  straight run; one SAC gradient step on the card against the same step
+  which must be none; a split run (the warm-up and the first chunk, then
+  a resume for the second) held bitwise against the main run; one SAC
+  gradient step on the card against the same step
   on the CPU (TF32 off, with the TF32-on control that must miss); then
   the committed SAC and TD3 policies (``rl_logs/offpolicy/*_torch/*.pt``,
   carried across by ``scripts/torch_convert_offpolicy.py``) scored
@@ -98,7 +99,7 @@ ls_iterations=3)`` with uniform random actions:
   episodes and 16 copies with every spawn moved by one float32 ulp within
   3 standard errors of EVAL.json's (``NUDGES``);
 * the per-env step (``per_env_phase``): 8 umaze envs stepped one at a time
-  through ``AckermannEnv.step`` (plain PyTorch on the card) for 20 steps,
+  through ``AckermannEnv.step`` (plain PyTorch on the card) for 5 steps,
   each step held against ``engine.staged_step`` (K3) on the same envs as a
   batch, and the same envs' per-env step on the CPU held against the
   card's;
@@ -117,14 +118,14 @@ ls_iterations=3)`` with uniform random actions:
   loaded on the card and on the CPU, each module's outputs against an
   SB3-layout forward and the CPU's, and the PPO policy evaluated at 4096
   envs for 200 steps (K1 200, K2 1); both spawners over the four
-  PointMazes, maze_flat and the open floor, 10 per-env steps each,
-  finite; ``main_sim.main(["--headless", "--steps", "100"])`` on the card
+  PointMazes, maze_flat and the open floor, 4 per-env steps each,
+  finite; ``main_sim.main(["--headless", "--steps", "50"])`` on the card
   against the CPU, its odometry printout finite, its steps/s against
   the 500 Hz pace;
 * data parallelism over the env batch (``parallel_phase``): K1 and K2
   against their twins at the ranks' local batches (2048 and 128 envs);
   the README PPO recipe at 4096 envs and SAC/TD3 at the committed runs'
-  256 envs for two iterations through ``parallel.dryrun.train_run``,
+  256 envs for one iteration through ``parallel.dryrun.train_run``,
   without a process group and as an NCCL group of world size 1, in the
   order A B B A (all four bitwise the same: parameters, env states, norm
   statistics, replay buffers; the same K1 and K2 counts), with the slab
@@ -133,7 +134,21 @@ ls_iterations=3)`` with uniform random actions:
   within ``PAR_PARAM_TOL`` of the one-process run, K1 once a step on each
   rank); ``scripts/torch_scale_bench.py`` at N=1 and 16384 envs beside the
   main path's rate, both 180 steps after 20 (N>=2 is not measured on a
-  one-card machine).
+  one-card machine);
+* the JAX package's learning record (``capability_phase``): K1 ``<0,0,0>``
+  and K2 against their twins at 1 and 3 envs (the 1-env recipe's partial
+  blocks) on the open floor and the medium maze, K1 with the evaluation's
+  flag set ``<1,0,0>`` and K2 on PointMaze_Medium-v3 states at 512 envs
+  (14 wall boxes; a second launch repeats the bits), and those shapes
+  timed; the converted medium policy (``rl_logs/solved_medium/ppo_torch``)
+  through ``--eval-only`` on its EVAL.json's own 512 episodes of at most
+  12000 steps (success within 3 binomial SDs, K1 once a step); the
+  scripted expert (``scripts/torch_scripted_ceiling.py``) on umaze with
+  PARITY.md's protocol, 512 x 6000 on the JAX script's own episodes
+  (within 3 binomial SDs of 44.3%); one iteration (2048 steps) of the
+  1-env reference-compat recipe (``scripts/torch_reference_compat_run.py``)
+  on the open floor: K1 ``<0,0,0>`` once and K2 twice a step, its two
+  finished episodes each in [-52,000, -49,000].
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; it checks that the path went through its kernels and that its
@@ -189,7 +204,7 @@ STAGED_PROFILE = 5
 # step takes ~0.15 s), path C at B_CHECK with per-env joint ranges
 # JNT_RANGE_STEPS, path A with heading noise HEADING_STEPS
 SUBSTEP_STEPS = 50
-STAGED_DR_STEPS = 100
+STAGED_DR_STEPS = 60
 JNT_RANGE_STEPS = 20
 HEADING_STEPS = 50
 # the trainer phase: the README's PPO recipe (64x64 tanh ActorCritic, T=32,
@@ -197,8 +212,8 @@ HEADING_STEPS = 50
 # iterations) at 4096 umaze envs
 TRAIN_FLAGS = ["--algo", "ppo", "--maze", "umaze", "--num-envs", "4096",
                "--normalize", "--seed", str(SEED)]
-TRAIN_ITERS = 3       # iterations of the main run; the resume adds one
-TIMED_ITERS = 3       # iterations timed by CUDA events after one warm-up
+TRAIN_ITERS = 1       # iterations of the main run; the resume adds one
+TIMED_ITERS = 2       # iterations timed by CUDA events after one warm-up
 # the reference-compat trainer (compat_trainer_phase): --reference-compat
 # at 4096 envs on the CLI's default arena, the open floor; there every
 # no-hit beam counts as a collision, so the reward per step is the -50
@@ -215,7 +230,7 @@ REWARD_BOUNDS = (-52.0, -49.0)
 # step against the card's, each step from the card's states: 1e-4 (the
 # same program, other libraries' rounding).
 PER_ENV_B = 8
-PER_ENV_STEPS = 20
+PER_ENV_STEPS = 5
 PER_ENV_TOL = dict(qpos=1e-6, qvel=1e-4, cpu=1e-4)
 # the tooling phase: the Gym vector env over the main path's env and width
 # (K1 once a step, K2 at reset; the trajectory bitwise equal to
@@ -264,8 +279,8 @@ OPTIONAL = ("gymnasium", "gymnasium_robotics", "mujoco", "matplotlib",
 SB3_EVAL_B = 4096
 SB3_EVAL_STEPS = 200
 SB3_TOL = dict(layout=1e-5, cpu=1e-4)
-SPAWN_STEPS = 10
-SIM_STEPS = 100
+SPAWN_STEPS = 4
+SIM_STEPS = 50
 SIM_TOL = PER_ENV_TOL["cpu"]
 # the solved phase: README.md's solved recipe (256x256 towers, obs 81, the
 # geodesic shaping and the goal compass, gamma 0.995, 6000-step episodes)
@@ -344,7 +359,7 @@ RESUME_TOL = 1e-6
 # scripts/torch_scale_bench.py at N=1, SCALE_ENVS envs and the main path's
 # step count.  Before all three, K1 and K2 against their twins at the
 # ranks' local batches, PAR_LOCAL_B
-PAR_ITERS = 2
+PAR_ITERS = 1
 PAR_PPO = ["--algo", "ppo", "--num-envs", "4096", "--unroll", "32",
            "--minibatches", "32", "--epochs", "10", "--normalize"]
 PAR_OFF = ["--algo", "sac", "td3", "--num-envs", "256",
@@ -356,6 +371,23 @@ PAR_COLLECTIVE_REPS = 50
 PAR_LOCAL_B = (2048, 128)    # 4096 and 256 envs over 2 ranks
 SCALE_ENVS = B_MAIN
 SCALE_STEPS = STEPS - WARMUP
+# the capability phase (the JAX package's learning record): K1 <0,0,0>
+# and K2 at the 1-env recipe's odd partial blocks; K1 with the evaluation's
+# flag set <1,0,0> and K2 on medium-maze states at the medium evaluation's
+# width (CAP_MEDIUM_WARM random-action steps from EVAL.json's episodes);
+# the converted medium policy on rl_logs/solved_medium/EVAL.json's own
+# episodes (512 x 12000); the scripted expert on umaze with PARITY.md's
+# protocol (512 x 6000, scripts/torch_scripted_ceiling.py); one iteration
+# of the 1-env reference-compat recipe on the open floor
+# (scripts/torch_reference_compat_run.py), whose two finished episodes pay
+# the -50 collision penalty on each of their 1000 steps
+CAP_SMALL_B = (1, 3)
+CAP_MEDIUM = ("solved_medium", 3000107008)
+CAP_MEDIUM_WARM = 200
+CAP_SCRIPTED = ["--max-velocity", "1.5", "--max-angular", "3.0",
+                "--max-episode-steps", "6000", "--episodes", "512"]
+CAP_COMPAT_STEPS = 2048
+CAP_EPISODE_BOUNDS = (1000 * REWARD_BOUNDS[0], 1000 * REWARD_BOUNDS[1])
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores, at the 700 W power limit
@@ -1130,7 +1162,7 @@ def constraint_bl_phase(card, dev, cenv, cstates, logs):
     for name, fn in (("row-major", rm_call), ("batch-last", bl_call),
                      ("batch-last ", bl_call), ("row-major ", rm_call)):
         asm.setdefault(name.strip(), []).append(
-            (cuda_ms(fn, 10), profiled_device_ms(fn, 3)))
+            (cuda_ms(fn, 4), profiled_device_ms(fn, 2)))
     for name, runs in asm.items():
         print(f"assembly + K3 ({name}): "
               + ", ".join(f"{m:.4f} ms per call, {d:.4f} ms on the device"
@@ -1149,7 +1181,7 @@ def constraint_bl_phase(card, dev, cenv, cstates, logs):
             f"{m:.4f} ms per call, {d:.4f} ms on the device"
             for m, d in runs) + f" (B={B_MAIN}, {card})")
     plain_ms = cuda_ms(lambda: k3.newton_solve_plain(
-        *kl, warmstart=ws, pre_transposed=True), 2)
+        *kl, warmstart=ws, pre_transposed=True), 1)
     na = float(kl[14].sum(0).float().mean())
     nbytes = k3_bytes(model.nv, kl[2].shape[1], kl[8].shape[1], na)
     jg = (kl[2][:, :, 0] != 0).sum(0).tolist()
@@ -1416,7 +1448,7 @@ def trainer_phase(card, dev):
             fail(f"trainer {label}: launches {got}, expected {want}")
 
     # the main run, then its resume for one more iteration
-    run_main("main run (3 iterations)", cli("main", steps_main,
+    run_main(f"main run ({TRAIN_ITERS} iterations)", cli("main", steps_main,
                                             "--anneal-lr"), TRAIN_ITERS)
     if ckpt_lib.checkpoint_step(latest("main")) != steps_main:
         fail(f"trainer: the last checkpoint is {latest('main')}, not step "
@@ -2182,6 +2214,81 @@ def _to_device(tree, device):
         for f in dataclasses.fields(tree)})
 
 
+def eval_draws(run, dev):
+    """EVAL.json's own episodes of ``rl_logs/<run>`` (``EVAL_DRAWS`` beside
+    its converted checkpoint) on ``dev``."""
+    from mujoco_playground_tpu_torch.rl.train import CKPT_SUBDIR
+    root = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(root, "rl_logs", run, CKPT_SUBDIR,
+                              EVAL_DRAWS)) as d:
+        return {k: torch.from_numpy(d[k][:EVAL_EPISODES]).to(dev)
+                for k in d.files}
+
+
+def eval_on_draws(env, policy, draws, **kw):
+    """``evaluate_agent`` on the episodes ``draws``, timed: (statistics,
+    seconds)."""
+    from mujoco_playground_tpu_torch.rl.evaluate import evaluate_agent
+    core = env.maze_core(draws["start_xy"], draws["goal_xy"],
+                         draws["goal_cell"], draws.get("yaw"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = evaluate_agent(env, policy, core=core, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def eval_cli_on_draws(log_dir, run, step, env_argv, dev):
+    """``rl.train.main --eval-only`` of the committed policy
+    ``rl_logs/<run>/ppo_torch/step_<step>.pt`` (copied to ``log_dir``) with
+    the env flags ``env_argv``, its evaluation played on EVAL.json's own
+    episodes: (statistics, seconds of the evaluation, launches)."""
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(log_dir, train_lib.CKPT_SUBDIR))
+    shutil.copy(os.path.join(root, "rl_logs", run, train_lib.CKPT_SUBDIR,
+                             f"step_{step:010d}.pt"),
+                os.path.join(log_dir, train_lib.CKPT_SUBDIR))
+    draws, timed = eval_draws(run, dev), {}
+
+    def timed_eval(env, *a, **kw):
+        out, timed["s"] = eval_on_draws(env, *a, draws, **kw)
+        return out
+
+    evaluate_cli = train_lib.evaluate_agent
+    train_lib.evaluate_agent = timed_eval
+    try:
+        reset_counts()
+        stats = train_lib.main(
+            ["--algo", "ppo", "--eval-only", "--log-dir", log_dir,
+             "--num-envs", str(EVAL_EPISODES), "--eval-episodes",
+             str(EVAL_EPISODES), "--seed", "0"] + env_argv)
+        return stats, timed["s"], read_counts()
+    finally:
+        train_lib.evaluate_agent = evaluate_cli
+
+
+def judge_eval(label, stats, ref, seconds, counts, want, steps, card):
+    """A success rate within SUCCESS_SDS binomial SDs of EVAL.json's
+    ``ref`` and the launches ``want``, or fail."""
+    sd = math.sqrt(ref["success_rate"] * (1 - ref["success_rate"])
+                   / EVAL_EPISODES)
+    far = abs(stats["success_rate"] - ref["success_rate"])
+    print(f"{label}: success_rate {stats['success_rate']:.4f} (EVAL.json "
+          f"{ref['success_rate']:.4f}; {far / sd:.2f} SD, 1 SD {sd:.4f}), "
+          f"mean_return {stats['mean_return']:.2f} "
+          f"({ref['mean_return']:.2f}), mean_length "
+          f"{stats['mean_length']:.1f} ({ref['mean_length']:.1f}); "
+          f"{EVAL_EPISODES} x {steps} steps in {seconds:.2f} s, "
+          f"{EVAL_EPISODES * steps / seconds:.0f} env-steps/s; launches "
+          f"{counts}, expected {want} ({card})")
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    if not far <= SUCCESS_SDS * sd:
+        fail(f"{label}: success rate {stats['success_rate']:.4f} is "
+             f"{far / sd:.2f} SD from EVAL.json's {ref['success_rate']:.4f}")
+
+
 def solved_phase(card, dev):
     """The solved recipe's trainer through ``rl.train.main`` at 4096 envs,
     as written and with a random spawn heading, its launch counts, checks
@@ -2190,7 +2297,6 @@ def solved_phase(card, dev):
     from mujoco_playground_tpu_torch.rl import checkpoint as ckpt_lib
     from mujoco_playground_tpu_torch.rl import ppo
     from mujoco_playground_tpu_torch.rl import train as train_lib
-    from mujoco_playground_tpu_torch.rl.evaluate import evaluate_agent
     from torch.profiler import ProfilerActivity, profile
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2211,17 +2317,20 @@ def solved_phase(card, dev):
         T, B, ep = cfg.unroll_length, cfg.num_envs, cfg.max_episode_steps
         spi = T * B
         reset_counts()
-        train_lib.main(argv + ["--timesteps", str(spi)])
+        # the loop's own evaluation is the trainer phase's to check: here
+        # it waits past the run, and main's final one runs
+        train_lib.main(argv + ["--timesteps", str(spi), "--eval-freq",
+                               str(2 * spi)])
         torch.cuda.synchronize()
         got = read_counts()
-        # settle 3; one iteration; two evaluations (the loop's and main's)
-        # of ep steps, each with one batched reset, as the init has
-        want = {"K1": 3 + T + 2 * ep, "K1e": 0,
-                "K2": 3 + (T if extra else 0), "K3": 0, "K2f": 0}
+        # settle 3; one iteration; main's evaluation of ep steps, with one
+        # batched reset, as the init has
+        want = {"K1": 3 + T + ep, "K1e": 0,
+                "K2": 2 + (T if extra else 0), "K3": 0, "K2f": 0}
         print(f"solved trainer {name}: main() for one iteration, "
               f"{time.perf_counter() - t0:.1f} s, launches {got}; expected "
-              f"{want} = settle 3 + {T} rollout steps + 2 evaluations of "
-              f"{ep} steps, K2 at 3 batched resets"
+              f"{want} = settle 3 + {T} rollout steps + main's evaluation of "
+              f"{ep} steps, K2 at 2 batched resets"
               + (f" and on each of the {T} rollout steps" if extra else ""))
         if got != want:
             fail(f"solved trainer {name}: launches {got}, expected {want}")
@@ -2331,80 +2440,28 @@ def solved_phase(card, dev):
               f"({card})")
 
     # -- (b) the capability figures, with EVAL.json's protocol and episodes
-    timed = {}
-
-    def load_draws(run):
-        with np.load(os.path.join(root, "rl_logs", run,
-                                  train_lib.CKPT_SUBDIR, EVAL_DRAWS)) as d:
-            return {k: torch.from_numpy(d[k][:EVAL_EPISODES]).to(dev)
-                    for k in d.files}
-
-    def timed_eval(env, *a, **kw):
-        """evaluate_agent on EVAL.json's episodes (``timed["draws"]``),
-        timed."""
-        d = timed["draws"]
-        core = env.maze_core(d["start_xy"], d["goal_xy"], d["goal_cell"],
-                             d.get("yaw"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = evaluate_agent(env, *a, core=core, **kw)
-        torch.cuda.synchronize()
-        timed["s"] = time.perf_counter() - t0
-        return out
-
-    def judge(label, stats, ref, seconds, counts, want):
-        sd = math.sqrt(ref["success_rate"] * (1 - ref["success_rate"])
-                       / EVAL_EPISODES)
-        far = abs(stats["success_rate"] - ref["success_rate"])
-        print(f"solved eval {label}: success_rate {stats['success_rate']:.4f}"
-              f" (EVAL.json {ref['success_rate']:.4f}; {far / sd:.2f} SD, "
-              f"1 SD {sd:.4f}), mean_return {stats['mean_return']:.2f} "
-              f"({ref['mean_return']:.2f}), mean_length "
-              f"{stats['mean_length']:.1f} ({ref['mean_length']:.1f}); "
-              f"{EVAL_EPISODES} x {EVAL_STEPS} steps in {seconds:.2f} s, "
-              f"{EVAL_EPISODES * EVAL_STEPS / seconds:.0f} env-steps/s; "
-              f"launches "
-              f"{counts}, expected {want} ({card})")
-        if counts != want:
-            fail(f"solved eval {label}: launches {counts}, expected {want}")
-        if not far <= SUCCESS_SDS * sd:
-            fail(f"solved eval {label}: success rate "
-                 f"{stats['success_rate']:.4f} is {far / sd:.2f} SD from "
-                 f"EVAL.json's {ref['success_rate']:.4f}")
-
-    evaluate_cli = train_lib.evaluate_agent
-    train_lib.evaluate_agent = timed_eval
-    try:
-        for run, step, extra in SOLVED_RUNS:
-            with open(os.path.join(root, "rl_logs", run, "EVAL.json")) as f:
-                ref = json.load(f)
-            log_dir = os.path.join(work, "eval_" + run)
-            os.makedirs(os.path.join(log_dir, train_lib.CKPT_SUBDIR))
-            shutil.copy(os.path.join(root, "rl_logs", run,
-                                     train_lib.CKPT_SUBDIR,
-                                     f"step_{step:010d}.pt"),
-                        os.path.join(log_dir, train_lib.CKPT_SUBDIR))
-            timed["draws"] = load_draws(run)
-            reset_counts()
-            stats = train_lib.main(
-                ["--algo", "ppo", "--eval-only", "--log-dir", log_dir,
-                 "--num-envs", str(EVAL_EPISODES), "--eval-episodes",
-                 str(EVAL_EPISODES), "--seed", "0"] + SOLVED_ENV + extra)
-            judge(run, stats, ref["eval"], timed["s"], read_counts(),
-                  {"K1": 3 + EVAL_STEPS, "K1e": 0, "K2": 2, "K3": 0, "K2f": 0})
-    finally:
-        train_lib.evaluate_agent = evaluate_cli
+    for run, step, extra in SOLVED_RUNS:
+        with open(os.path.join(root, "rl_logs", run, "EVAL.json")) as f:
+            ref = json.load(f)
+        stats, secs, counts = eval_cli_on_draws(
+            os.path.join(work, "eval_" + run), run, step,
+            SOLVED_ENV + extra, dev)
+        judge_eval(f"solved eval {run}", stats, ref["eval"], secs, counts,
+                   {"K1": 3 + EVAL_STEPS, "K1e": 0, "K2": 2, "K3": 0,
+                    "K2f": 0}, EVAL_STEPS, card)
 
     with open(os.path.join(root, "rl_logs", "solved", "EVAL.json")) as f:
         ref = json.load(f)["random_baseline"]
     env = train_lib.build_env(config_of(SOLVED_ENV), dev)
-    timed["draws"] = load_draws("solved")
-    held = timed["draws"]["random_actions"]
+    draws = eval_draws("solved", dev)
+    held = draws["random_actions"]
     reset_counts()
-    stats = timed_eval(env, lambda obs: held, num_episodes=EVAL_EPISODES)
-    judge("random policy in the solved env (one uniform action per episode)",
-          stats, ref, timed["s"], read_counts(),
-          {"K1": EVAL_STEPS, "K1e": 0, "K2": 1, "K3": 0, "K2f": 0})
+    stats, secs = eval_on_draws(env, lambda obs: held, draws,
+                                num_episodes=EVAL_EPISODES)
+    judge_eval("solved eval random policy in the solved env (one uniform "
+               "action per episode)", stats, ref, secs, read_counts(),
+               {"K1": EVAL_STEPS, "K1e": 0, "K2": 1, "K3": 0, "K2f": 0},
+               EVAL_STEPS, card)
     shutil.rmtree(work, ignore_errors=True)
     print(f"solved phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2610,25 +2667,26 @@ def offpolicy_phase(card, dev):
             sac_card_vs_cpu(step, state, cfg)
         del state
 
-        # a resume for one more chunk against the straight run
-        more = OFFPOLICY_STEPS + chunk * spi
-        run_main(f"resume ({chunk} iterations)", cli("main", more,
-                                                     "--resume"), chunk)
-        train_lib.main(cli("straight", more))
-        a, b = load("straight"), load("main")
+        # the main run against a split one: the warm-up and the first
+        # chunk, then a resume for the second
+        train_lib.main(cli("split", OFFPOLICY_STEPS - chunk * spi))
+        run_main(f"resume ({chunk} iterations)",
+                 cli("split", OFFPOLICY_STEPS, "--resume"), chunk)
+        a, b = load("main"), load("split")
         d_params, _ = _tree_diff({m: a[m] for m in mod_names(a)},
                                  {m: b[m] for m in mod_names(b)})
         _, same_all = _tree_diff(a, b)
-        print(f"offpolicy {algo} resume check: {iters} iterations + a "
-              f"resume for {chunk} against {iters + chunk} straight: "
-              f"largest parameter difference {d_params:.3e}; whole train "
-              f"state (networks, targets, optimizers, buffer, env states, "
-              f"generators, step{', update count' if algo == 'td3' else ''})"
-              f" bitwise equal: {same_all}")
+        print(f"offpolicy {algo} resume check: {iters - chunk} iterations + "
+              f"a resume for {chunk} against the main run's {iters} "
+              f"straight: largest parameter difference {d_params:.3e}; "
+              f"whole train state (networks, targets, optimizers, buffer, "
+              f"env states, generators, step"
+              f"{', update count' if algo == 'td3' else ''}) bitwise equal: "
+              f"{same_all}")
         if not same_all:
             fail(f"offpolicy {algo}: the resumed run departs from the "
                  f"straight run")
-        shutil.rmtree(os.path.join(work, "straight"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "split"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "main"), ignore_errors=True)
 
     offpolicy_eval(card, dev, work)
@@ -2860,6 +2918,210 @@ def local_batch_checks(env, b, gen, failures):
     xp, xq = rows(st.physics.xpos), rows(st.physics.xquat)
     check_k2(f"parallel B_local={b}", k2.lidar(model, xp, xq),
              k2.lidar_plain(model, xp, xq), failures)
+
+
+def capability_phase(card, dev):
+    """The JAX package's learning record at the smoke run's depth (module
+    docstring, CAP_* constants); returns the kernels-line numbers of the
+    shapes it adds."""
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    from mujoco_playground_tpu_torch.ops import lidar as k2
+    from mujoco_playground_tpu_torch.ops import step as k1
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_capability")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    compat = load_script("torch_reference_compat_run")
+    solved_eval = load_script("torch_solved_eval")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    failures = []
+
+    def rows(x):
+        return x.reshape(x.shape[0], -1).T.contiguous()
+
+    # (a) K1 <0,0,0> and K2 at the 1-env recipe's odd partial blocks: the
+    # open floor of the recipe and the medium maze's walls
+    with open(os.path.join(root, "rl_logs", CAP_MEDIUM[0], "EVAL.json")) as f:
+        medium_ref = json.load(f)
+    medium_argv = solved_eval.eval_flags(medium_ref["env"])
+    cenv = train_lib.build_env(compat.recipe(False, CAP_COMPAT_STEPS,
+                                             CAP_COMPAT_STEPS), dev)
+    menv = make_ackermann_env("maze", medium_ref["env"]["maze_id"],
+                              solver_iterations=4, ls_iterations=3,
+                              device=dev, seed=SEED)
+    small = {}
+    for arena, env in (("open floor", cenv), ("medium", menv)):
+        for b in CAP_SMALL_B:
+            st = env.reset(b)
+            q, v = rows(st.physics.qpos), rows(st.physics.qvel)
+            ws = rows(st.physics.qacc_warmstart)
+            for step in range(CHECK_STEPS):
+                ctrl = torch.rand((3, b), generator=gen, device=dev) * 2 - 1
+                args = (env.model, q, v, ctrl, ws, None, None, None, False)
+                got, want = k1.step_fused(*args), k1.step_plain(*args)
+                torch.cuda.synchronize()
+                small.setdefault("K1p", []).append(check_k1(
+                    f"<0,0,0> {arena} B={b} step {step}", got, want,
+                    env.model, failures))
+                xp, xq = want[2], want[3]
+                small.setdefault("K2", []).append(check_k2(
+                    f"{arena} B={b} step {step} frames", k2.lidar(
+                        env.model, xp, xq), k2.lidar_plain(env.model, xp, xq),
+                    failures, K2F_TOL))
+                q, v, ws = want[0], want[1], want[4]
+            small[(arena, b)] = args
+    # (b) K1 with the evaluation's flag set and K2 on medium-maze states:
+    # EVAL.json's episodes after CAP_MEDIUM_WARM random-action steps
+    draws = eval_draws(CAP_MEDIUM[0], dev)
+    B = draws["start_xy"].shape[0]
+    st = menv.reset(core=menv.maze_core(draws["start_xy"], draws["goal_xy"],
+                                        draws["goal_cell"]))
+    xp, xq = rows(st.physics.xpos), rows(st.physics.xquat)
+    medium_k2 = [check_k2(f"medium reset frames B={B}",
+                          k2.lidar(menv.model, xp, xq),
+                          k2.lidar_plain(menv.model, xp, xq), failures)]
+    for _ in range(CAP_MEDIUM_WARM):
+        st = menv.step_batch(st, torch.rand((B, 2), generator=gen,
+                                            device=dev) * 2 - 1)
+    q, v = rows(st.physics.qpos), rows(st.physics.qvel)
+    ws = rows(st.physics.qacc_warmstart)
+    env_in = torch.cat([st.odom_ref.position[:, :2], st.goal,
+                        st.prev_goal_distance[:, None]], -1).T.contiguous()
+    active = k1.contact_activity(menv.model, q).sum(0).float()
+    print(f"capability: medium states B={B} after {CAP_MEDIUM_WARM} "
+          f"random-action steps, {float(active.mean()):.2f} active contact "
+          f"rows per env (max {int(active.max())}), "
+          f"{menv.model.num_scene_boxes} scene boxes")
+    medium_k1 = []
+    for step in range(CHECK_STEPS):
+        ctrl = torch.rand((3, B), generator=gen, device=dev) * 2 - 1
+        margs = (menv.model, q, v, ctrl, ws, env_in, menv._env_statics(),
+                 None, False)
+        got, want = k1.step_fused(*margs), k1.step_plain(*margs)
+        torch.cuda.synchronize()
+        medium_k1.append(check_k1(f"<1,0,0> medium B={B} step {step}", got,
+                                  want, menv.model, failures,
+                                  k1_witness(margs, gen)))
+        medium_k2.append(check_k2(
+            f"medium B={B} step {step} frames",
+            k2.lidar(menv.model, want[2], want[3]),
+            k2.lidar_plain(menv.model, want[2], want[3]), failures,
+            K2F_TOL))
+        q, v, ws = want[0], want[1], want[4]
+    again = k1.step_fused(*margs)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"check K1 <1,0,0> medium B={B}: a second launch on the same "
+          f"inputs is bitwise equal: {same}")
+    if not same:
+        failures.append("K1 <1,0,0> medium repeat")
+    if failures:
+        fail(f"capability: kernels disagree with their plain twins: "
+             f"{failures}")
+
+    # the new shapes' times beside their bounds
+    model1, cq = cenv.model, small[("open floor", 1)][1]
+    k1p1 = functools.partial(k1.step_fused, *small[("open floor", 1)])
+    st1 = cenv.reset(1)
+    xp1, xq1 = rows(st1.physics.xpos), rows(st1.physics.xquat)
+    k21 = functools.partial(k2.lidar, model1, xp1, xq1)
+    k1m = functools.partial(k1.step_fused, *margs)
+    xpm, xqm = want[2], want[3]
+    k2m = functools.partial(k2.lidar, menv.model, xpm, xqm)
+    times = {}
+    for name, call, plain, reps in (
+            ("K1p1", k1p1, lambda: k1.step_plain(*small[("open floor", 1)]),
+             50),
+            ("K21", k21, lambda: k2.lidar_plain(model1, xp1, xq1), 100),
+            ("K1m", k1m, lambda: k1.step_plain(*margs), 20),
+            ("K2m", k2m, lambda: k2.lidar_plain(menv.model, xpm, xqm), 50)):
+        times[name] = (cuda_ms(call, reps), graph_ms(call, reps),
+                       cuda_ms(plain, 1))
+
+    def k2_bound(model, b):
+        return bound_ms((model.nbody * 7 + model.nsite) * 4 * b,
+                        model.nsite * (72 + 27 * model.num_scene_boxes) * b)
+
+    mm = menv.model
+    m_bytes = (mm.nq + 2 * mm.nv + mm.nu + 5 + mm.nq + mm.nv + mm.nbody * 7
+               + mm.nv + mm.nsite + 12) * 4 * B
+    m_flop = k1_ops(mm, k1.contact_activity(mm, q).float().mean(1).tolist(),
+                    fresh=False)
+    p_bytes = (2 * model1.nq + 4 * model1.nv + model1.nu
+               + model1.nbody * 7) * 4
+    p_flop = k1_ops(model1, k1.contact_activity(model1, cq).float().mean(
+        1).tolist(), fresh=False, env=False)
+    bounds = {"K1p1": bound_ms(p_bytes, p_flop), "K21": k2_bound(model1, 1),
+              "K1m": bound_ms(m_bytes, m_flop * B), "K2m": k2_bound(mm, B)}
+    for name, label in (("K1p1", "K1 <0,0,0> B=1 (open floor)"),
+                        ("K21", "K2 B=1 (open floor)"),
+                        ("K1m", f"K1 <1,0,0> B={B} (medium)"),
+                        ("K2m", f"K2 B={B} (medium)")):
+        ms, dev_ms, plain = times[name]
+        print(f"capability {label}: {ms:.4f} ms per call, {dev_ms:.4f} ms "
+              f"on the device (plain {plain:.2f} ms, bound "
+              f"{bounds[name][0]:.3e} ms by {bounds[name][1]}) ({card})")
+
+    # (c) the converted medium policy on EVAL.json's own episodes
+    steps = medium_ref["env"]["max_episode_steps"]
+    stats, secs, counts_m = eval_cli_on_draws(
+        os.path.join(work, "medium"), CAP_MEDIUM[0], CAP_MEDIUM[1],
+        medium_argv, dev)
+    judge_eval("capability medium policy", stats, medium_ref["eval"], secs,
+               counts_m, {"K1": 3 + steps, "K1e": 0, "K2": 2, "K3": 0,
+                          "K2f": 0}, steps, card)
+
+    # (d) the scripted expert on umaze, PARITY.md's protocol
+    scripted = load_script("torch_scripted_ceiling")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = scripted.main(CAP_SCRIPTED + ["--out", os.path.join(
+        work, "scripted_umaze.json")])
+    counts_s = read_counts()
+    want_s = {"K1": 3 + 6000, "K1e": 0, "K2": 1, "K3": 0, "K2f": 0}
+    print(f"capability scripted expert (umaze, 512 x 6000): success_rate "
+          f"{res['success_rate']:.4f} (the JAX script's "
+          f"{res['jax_success_rate']:.3f}, 3 SDs {3 * res['binomial_sd']:.4f}"
+          f"), in {time.perf_counter() - t0:.1f} s, launches {counts_s}, "
+          f"expected {want_s} ({card})")
+    if counts_s != want_s:
+        fail(f"capability scripted expert: launches {counts_s}")
+    if not res["within_3sd"]:
+        fail(f"capability scripted expert: success {res['success_rate']}")
+
+    # (e) one iteration of the 1-env reference-compat recipe
+    reset_counts()
+    it_s = []
+    path, _ = compat.run(False, dev, CAP_COMPAT_STEPS, CAP_COMPAT_STEPS,
+                         work, lambda i, sec: it_s.append(sec))
+    counts_c, variants_c = read_counts(), read_variants()
+    with open(path) as f:
+        returns = [json.loads(x)["episode_return"] for x in f
+                   if "episode_return" in x]
+    want_c = {"K1": CAP_COMPAT_STEPS, "K1e": 0,
+              "K2": 1 + 2 * CAP_COMPAT_STEPS, "K3": 0, "K2f": 0}
+    lo, hi = CAP_EPISODE_BOUNDS
+    print(f"capability 1-env reference-compat recipe, one iteration of "
+          f"{CAP_COMPAT_STEPS} steps on the open floor: episode returns "
+          f"{returns} (bounds [{lo:.0f}, {hi:.0f}]); {it_s[0]:.1f} s, "
+          f"{CAP_COMPAT_STEPS / it_s[0]:.0f} env-steps/s; launches "
+          f"{counts_c} {variants_c}, expected {want_c} ({card})")
+    if counts_c != want_c or set(variants_c) != {PLAIN}:
+        fail(f"capability compat: launches {counts_c} {variants_c}")
+    if len(returns) != 2 or not all(lo <= r <= hi for r in returns):
+        fail(f"capability compat: episode returns {returns}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"capability phase: {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "K1p1": (counts_c["K1"], max(small["K1p"]), *times["K1p1"],
+                 *bounds["K1p1"]),
+        "K21": (counts_c["K2"], max(small["K2"]), *times["K21"],
+                *bounds["K21"]),
+        "K1m": (counts_m["K1"], max(medium_k1), *times["K1m"],
+                *bounds["K1m"]),
+        "K2m": (counts_m["K2"], max(medium_k2), *times["K2m"],
+                *bounds["K2m"])}
 
 
 def parallel_phase(card, dev, main_rate):
@@ -3470,27 +3732,27 @@ def main():
     k3_call = functools.partial(k3.newton_solve, *sys_args,
                                 warmstart=sys_ws)
     k1_ms, k1_dev_ms = cuda_ms(k1_call, 20), graph_ms(k1_call, 20)
-    k1_plain_ms = cuda_ms(lambda: k1.step_plain(*args), 2)
+    k1_plain_ms = cuda_ms(lambda: k1.step_plain(*args), 1)
     k2_ms, k2_dev_ms = cuda_ms(k2_call, 50), graph_ms(k2_call, 50)
-    k2_plain_ms = cuda_ms(lambda: k2.lidar_plain(model, xp, xq), 3)
+    k2_plain_ms = cuda_ms(lambda: k2.lidar_plain(model, xp, xq), 1)
     k1e_ms, k1e_dev_ms = cuda_ms(k1e_call, 20), graph_ms(k1e_call, 20)
     k1e_plain_ms = cuda_ms(lambda: k1.step_plain(*dargs, dr_params=dparams),
-                           2)
+                           1)
     k3_ms, k3_dev_ms = cuda_ms(k3_call, 20), graph_ms(k3_call, 20)
     k3_plain_ms = cuda_ms(
-        lambda: k3.newton_solve_plain(*sys_args, warmstart=sys_ws), 2)
+        lambda: k3.newton_solve_plain(*sys_args, warmstart=sys_ws), 1)
     k1p_call = functools.partial(k1.step_fused, *pargs)
     k1p_ms, k1p_dev_ms = cuda_ms(k1p_call, 20), graph_ms(k1p_call, 20)
-    k1p_plain_ms = cuda_ms(lambda: k1.step_plain(*pargs), 2)
+    k1p_plain_ms = cuda_ms(lambda: k1.step_plain(*pargs), 1)
     k1pe_call = functools.partial(k1.step_fused, *pdargs,
                                   dr_params=pdparams)
     k1pe_ms, k1pe_dev_ms = cuda_ms(k1pe_call, 20), graph_ms(k1pe_call, 20)
     k1pe_plain_ms = cuda_ms(
-        lambda: k1.step_plain(*pdargs, dr_params=pdparams), 2)
+        lambda: k1.step_plain(*pdargs, dr_params=pdparams), 1)
     k2f_call = functools.partial(k2.lidar, model, fxp, fxq, floor)
     k2f_ms, k2f_dev_ms = cuda_ms(k2f_call, 50), graph_ms(k2f_call, 50)
     k2f_plain_ms = cuda_ms(lambda: k2.lidar_plain(model, fxp, fxq, floor),
-                           3)
+                           1)
 
     nbox = model.num_scene_boxes
     k1_bytes = (model.nq + 2 * model.nv + model.nu + 7 + model.nq
@@ -3593,6 +3855,9 @@ def main():
     # -- phase 10: data parallelism over the env batch ---------------------
     parallel_phase(card, dev, B_MAIN / step_ms * 1e3)
 
+    # -- phase 11: the JAX package's learning record -----------------------
+    cap = capability_phase(card, dev)
+
     def entry(name, source, replaces, n, err, ms, dev_ms, plain, bound, by):
         return {"name": name, "route": "cuda",
                 "source": f"mujoco_playground_tpu_torch/csrc/{source}",
@@ -3631,6 +3896,17 @@ def main():
               "mujoco_playground_tpu/ops/lidar_pallas.py:114",
               paths["C"]["counts"]["K2f"], k2f_err, k2f_ms, k2f_dev_ms,
               k2f_plain_ms, k2f_bound, k2f_by),
+        entry("K1 plain physics step <0,0,0> at B=1 (1-env reference-compat "
+              "recipe)", "step_kernel.cu", step_src, *cap["K1p1"]),
+        entry("K2 lidar at B=1 (1-env reference-compat recipe)",
+              "lidar_kernel.cu",
+              "mujoco_playground_tpu/ops/lidar_pallas.py:114", *cap["K21"]),
+        entry(f"K1 step <1,0,0> on medium-maze states (B={EVAL_EPISODES}, "
+              "the medium evaluation)", "step_kernel.cu", step_src,
+              *cap["K1m"]),
+        entry(f"K2 lidar on medium-maze frames (B={EVAL_EPISODES})",
+              "lidar_kernel.cu",
+              "mujoco_playground_tpu/ops/lidar_pallas.py:114", *cap["K2m"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

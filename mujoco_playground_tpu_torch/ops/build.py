@@ -24,13 +24,17 @@ SOURCES = ("step_kernel.cu", "step_kernel_dr.cu", "lidar_kernel.cu",
            "newton_kernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# K1 and K1e round every product and sum on its own, as their plain twins'
-# elementwise ops do.  Contracted into fused multiply-adds, their float32
-# steps part from the twins' beyond the tolerance on about 1% of the envs
-# per step of wall-contact states, where float32 is ill-conditioned
-# (PERF.md; scripts/torch_k1_wall_flips.py shows it on the host).
+# K1, K1e and K2 round every product and sum on its own, as their plain
+# twins' elementwise ops do.  Contracted into fused multiply-adds, K1's and
+# K1e's float32 steps part from the twins' beyond the tolerance on about 1%
+# of the envs per step of wall-contact states, where float32 is
+# ill-conditioned (PERF.md; scripts/torch_k1_wall_flips.py shows it on the
+# host); K2's beams part by up to 4.8e-5 m on PointMaze_Medium-v3's frames,
+# where long beams graze its walls, while K1's fused scan of the same
+# frames (the same lidar.cuh without contractions) stays within 1e-6.
 SOURCE_FLAGS = {"step_kernel.cu": ("-fmad=false",),
-                "step_kernel_dr.cu": ("-fmad=false",)}
+                "step_kernel_dr.cu": ("-fmad=false",),
+                "lidar_kernel.cu": ("-fmad=false",)}
 
 _LOADED: dict = {}
 

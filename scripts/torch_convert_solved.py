@@ -21,6 +21,7 @@ port's episodes at these draws.  The Orbax directories stay as they are.
 This script needs JAX and Orbax; the port itself reads only what it
 writes.
 """
+import json
 import os
 import sys
 
@@ -38,11 +39,21 @@ from mujoco_playground_tpu_torch.rl.checkpoint import \
     checkpoint_step  # noqa: E402
 from mujoco_playground_tpu_torch.rl.train import CKPT_SUBDIR  # noqa: E402
 
-# the committed solved runs: their checkpoints (rl_logs/*/EVAL.json) and
-# spawn heading noise
-SOLVED = (("rl_logs/solved/ppo/step_1500119040", 0.0),
-          ("rl_logs/solved_randyaw/ppo/step_3000107008", 3.14159265))
+# the committed solved runs: their checkpoints (rl_logs/*/EVAL.json), spawn
+# heading noise and maze
+SOLVED = (("rl_logs/solved/ppo/step_1500119040", 0.0, "PointMaze_UMaze-v3"),
+          ("rl_logs/solved_randyaw/ppo/step_3000107008", 3.14159265,
+           "PointMaze_UMaze-v3"),
+          ("rl_logs/solved_medium/ppo/step_3000107008", 0.0,
+           "PointMaze_Medium-v3"))
 EPISODES, EVAL_SEED, RANDOM_KEY = 512, 0, 123
+# the scripted expert's arenas (PARITY.md's calibration): name, maze, spawn
+# heading noise; its episodes come from PRNGKey(SCRIPTED_SEED)
+SCRIPTED = (("umaze", "PointMaze_UMaze-v3", 0.0),
+            ("umaze_heading", "PointMaze_UMaze-v3", 3.14159265),
+            ("medium", "PointMaze_Medium-v3", 0.0))
+SCRIPTED_SEED = 7
+SCRIPTED_DIR = "rl_logs/scripted_torch"
 
 
 def restore_policy_leaves(path):
@@ -60,15 +71,15 @@ def port_path(path):
                         f"step_{checkpoint_step(path):010d}.pt")
 
 
-def eval_draws(jenv, heading_noise, episodes=EPISODES):
+def eval_draws(jenv, heading_noise, episodes=EPISODES, seed=EVAL_SEED):
     """The episodes of EVAL.json's protocol as numpy: the JAX env's
-    ``reset_core`` of each key of ``split(PRNGKey(EVAL_SEED), episodes)``,
+    ``reset_core`` of each key of ``split(PRNGKey(seed), episodes)``,
     read back as spawn xy, goal xy (world) and goal cell, and the spawn yaw
     each key draws (its split replayed, as ``reset_core`` draws it) under
     ``heading_noise``.  Run with x64 off, as the evaluation was (under x64
     ``randint`` draws other bits)."""
     import jax.numpy as jnp
-    keys = jax.random.split(jax.random.PRNGKey(EVAL_SEED), episodes)
+    keys = jax.random.split(jax.random.PRNGKey(seed), episodes)
     core = jax.jit(jax.vmap(jenv.reset_core))(keys)
     f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
     out = dict(
@@ -95,22 +106,39 @@ def random_baseline_actions():
 
 def main():
     from mujoco_playground_tpu.envs import make_ackermann_env
-    jenv = make_ackermann_env("maze", "umaze", solver_iterations=4,
-                              ls_iterations=3)
-    for rel, heading_noise in SOLVED:
+    jenvs = {}
+
+    def jenv_of(maze):
+        if maze not in jenvs:
+            jenvs[maze] = make_ackermann_env("maze", maze,
+                                             solver_iterations=4,
+                                             ls_iterations=3)
+        return jenvs[maze]
+
+    for rel, heading_noise, maze in SOLVED:
         src = os.path.join(ROOT, rel)
         params, norm = restore_policy_leaves(src)
         out = port_path(src)
         os.makedirs(os.path.dirname(out), exist_ok=True)
         torch.save(interop.ppo_checkpoint_from_flax(
             params, norm, checkpoint_step(src)), out)
-        draws = eval_draws(jenv, heading_noise)
-        if not heading_noise:
-            draws["random_actions"] = random_baseline_actions()
+        draws = eval_draws(jenv_of(maze), heading_noise)
+        with open(os.path.join(os.path.dirname(os.path.dirname(src)),
+                               "EVAL.json")) as f:
+            if "random_baseline" in json.load(f):
+                draws["random_actions"] = random_baseline_actions()
         npz = os.path.join(os.path.dirname(out), "eval_seed0.npz")
         np.savez(npz, **draws)
         print(f"{rel} -> {os.path.relpath(out, ROOT)} "
               f"({os.path.getsize(out)} bytes), {os.path.relpath(npz, ROOT)} "
+              f"({os.path.getsize(npz)} bytes)")
+    os.makedirs(os.path.join(ROOT, SCRIPTED_DIR), exist_ok=True)
+    for name, maze, heading_noise in SCRIPTED:
+        npz = os.path.join(ROOT, SCRIPTED_DIR,
+                           f"scripted_seed{SCRIPTED_SEED}_{name}.npz")
+        np.savez(npz, **eval_draws(jenv_of(maze), heading_noise,
+                                   seed=SCRIPTED_SEED))
+        print(f"scripted {name} -> {os.path.relpath(npz, ROOT)} "
               f"({os.path.getsize(npz)} bytes)")
 
 

@@ -216,3 +216,32 @@ def test_parallel_phase_runs_the_recipes():
     for cfg in (ppo, off):
         assert (cfg.env_type, cfg.maze_id, cfg.solver_iterations,
                 cfg.ls_iterations) == ("maze", "umaze", 4, 3)
+
+
+def test_capability_phase_runs_the_protocols():
+    """The capability phase's flags: the scripted expert on umaze with
+    PARITY.md's protocol, the medium policy with its EVAL.json's env and
+    the 1-env reference-compat recipe."""
+    import json
+    from mujoco_playground_tpu_torch.rl import train as train_lib
+    scripted = chip_smoke.load_script("torch_scripted_ceiling")
+    args = scripted.make_parser().parse_args(chip_smoke.CAP_SCRIPTED)
+    assert (args.max_velocity, args.max_angular, args.max_episode_steps,
+            args.episodes) == (1.5, 3.0, 6000, 512)
+    assert scripted.ARENAS[(args.maze, args.spawn_heading_noise)] == "umaze"
+    with open(ROOT / "rl_logs" / chip_smoke.CAP_MEDIUM[0] / "EVAL.json") as f:
+        env = json.load(f)["env"]
+    flags = chip_smoke.load_script("torch_solved_eval").eval_flags(env)
+    cfg = train_lib.config_from_args(train_lib.make_parser().parse_args(
+        flags + ["--algo", "ppo"]))
+    assert (cfg.env_type, cfg.maze_id, cfg.max_episode_steps,
+            cfg.hidden_sizes, cfg.goal_compass, cfg.normalize_obs) == (
+        "maze", "medium", 12000, (256, 256), True, True)
+    assert (ROOT / "rl_logs" / chip_smoke.CAP_MEDIUM[0] / "ppo_torch"
+            / f"step_{chip_smoke.CAP_MEDIUM[1]:010d}.pt").exists()
+    compat = chip_smoke.load_script("torch_reference_compat_run")
+    rc = compat.recipe(False, chip_smoke.CAP_COMPAT_STEPS,
+                       chip_smoke.CAP_COMPAT_STEPS)
+    assert (rc.env_type, rc.num_envs, rc.unroll_length, rc.reference_compat,
+            rc.ent_coef) == ("simple", 1, 2048, True, 0.0)
+    assert chip_smoke.CAP_EPISODE_BOUNDS == (-52000.0, -49000.0)

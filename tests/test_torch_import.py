@@ -12,10 +12,13 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "mujoco_playground_tpu_torch"
-# the port's multi-process runners (scripts/, beside the JAX package's)
-SCRIPTS = [ROOT / "scripts" / "torch_multihost_train.py",
-           ROOT / "scripts" / "torch_scale_bench.py",
-           ROOT / "scripts" / "torch_parallel_ab.py"]
+# the port's multi-process runners and its learning-record scripts
+# (scripts/, beside the JAX package's)
+SCRIPTS = [ROOT / "scripts" / f"{name}.py" for name in (
+    "torch_multihost_train", "torch_scale_bench", "torch_parallel_ab",
+    "torch_solved_eval", "torch_scripted_ceiling", "torch_failure_modes",
+    "torch_reference_compat_run", "torch_learning_record",
+    "torch_k3_probe")]
 
 
 def _modules():

@@ -140,7 +140,9 @@ def test_eval_draws_are_the_jax_evaluation_episodes():
                         ls_iterations=3)
     penv = make_ackermann_env("maze", "umaze", device="cpu",
                               solver_iterations=4, ls_iterations=3)
-    for rel, heading_noise in conv.SOLVED:
+    for rel, heading_noise, maze in conv.SOLVED:
+        if maze != "PointMaze_UMaze-v3":
+            continue   # the medium run's draws: test_torch_medium.py
         with jax.enable_x64(False):
             want = conv.eval_draws(jenv, heading_noise)
             if not heading_noise:
