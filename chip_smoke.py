@@ -13,7 +13,12 @@ ls_iterations=3)`` with uniform random actions:
 * path A: ``DomainRandomizedEnv`` for 200 steps (kernel K1e);
 * path B: the same env with the compat manifolds
   (``reference_flat_manifold``, ``reference_wheel_patch``): the staged step
-  through kernel K3, the observation through K2;
+  through kernel K3, the observation through K2; K3 is held against its
+  twin on the Newton system of path B's states every ``K3_PATH_EVERY``
+  steps from step ``K3_PATH_FROM`` on (15 checks in 200 steps, outside the
+  launch counts and the timing), and before the paths on the path-B envs
+  where it once missed its twins (``K3_MISSES``, at their own batch: a
+  partial block);
 * the reference-compat knobs, the staged DR fallback and DR with heading
   noise (``compat_paths``), each with its exact launch counts: path R
   (``reference_delayed_obs`` and ``reference_lidar_aliasing``, 200 steps:
@@ -197,6 +202,17 @@ SAME_STEPS = 10       # of those, from one shared start with shared actions
 STAGED_STEPS = 200    # path B env steps (spawned robots land by ~100)
 STAGED_WARMUP = 20
 STAGED_PROFILE = 5
+# K3 against its twin on path B's states after every K3_PATH_EVERY-th step
+# from K3_PATH_FROM on (scripts/torch_k3_probe.py's checks), and on the
+# path-B envs that the probe captured where K3 once missed its twins
+K3_PATH_FROM = 60
+K3_PATH_EVERY = 10
+K3_MISSES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "data", "k3_path_b_misses.npz")
+# newton_solve's positional arguments, as engine.newton_inputs returns them
+K3_ARG_NAMES = ("Mt", "a_s", "G", "j_aref", "j_R", "j_floss", "j_active",
+                "j_kind", "Jn", "Jt1", "Jt2", "c_aref", "c_R", "c_mu",
+                "c_active", "iterations", "ls_iterations")
 # the reference-compat knobs, the staged DR fallback and DR with heading
 # noise (compat_paths): path R and path R under DR run STEPS steps (the
 # plain steps' kernel checks take their last states: envs in contact as on
@@ -389,10 +405,11 @@ CAP_SCRIPTED = ["--max-velocity", "1.5", "--max-angular", "3.0",
 CAP_COMPAT_STEPS = 2048
 CAP_EPISODE_BOUNDS = (1000 * REWARD_BOUNDS[0], 1000 * REWARD_BOUNDS[1])
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
-# outside the tensor cores, at the 700 W power limit
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 and float64
+# FLOP/s outside the tensor cores, at the 700 W power limit
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12      # float64 outside the tensor cores (K3's arithmetic)
 
 # (atol, rtol) of each K1 output against the plain twin on the same inputs,
 # about 10x the largest difference read on an H100 (PERF.md).  qpos, xpos
@@ -413,9 +430,13 @@ K2_TOL = (5e-6, 0.0)
 # beams are level)
 K2F_TOL = K1_TOL["slab"]
 # K3's qacc against its twin, per env and normwise like K1's qacc: the
-# kernel and the twin sum the Hessian and gradients over the contact rows
-# in different orders (the kernel row by row over the rows in contact, the
-# twin over all rows at once), and the solve mixes every dof of an env
+# kernel computes in float64 and the twin (the yardstick) in float32, whose
+# rounding the tolerance covers where the solve is well-conditioned; beside
+# that the two sum the Hessian and gradients over the contact rows in
+# different orders (the kernel row by row over the rows in contact, the
+# twin over all rows at once), and the solve mixes every dof of an env.
+# The kernel is also held, with no set-aside, to the twin run in float64
+# on the same inputs (k3_states_check, the captured envs)
 K3_TOL = (1e-2, 3e-4)
 # K1 is held strictly on reset states and at B=16384.  On the wall-contact
 # states, and K1e and K3 at the paths' B=16384 shapes, a few envs may sit
@@ -428,9 +449,14 @@ K3_TOL = (1e-2, 3e-4)
 # inputs with qpos, qvel and the warm start (K3: the smooth acceleration,
 # the reference accelerations and the warm start) each moved one float32
 # ulp up or down at random, the float64 or the float32 twin moves by more
-# than the tolerance in one of ULP_DRAWS draws.  At most MAX_FLIPS envs
-# may be set aside; their ids and the twins' moves are printed, and
-# max_abs_err covers all envs.
+# than the tolerance in one of ULP_DRAWS draws.  An env may also be set
+# aside where the float32 twin is the one that is wrong: it is more than
+# the tolerance from the float64 twin on the same inputs, and the kernel
+# is within the tolerance of the float64 twin.  At most MAX_FLIPS envs may
+# be set aside, of both kinds together; their ids, the twins' moves and
+# the three distances (kernel to the float32 twin, float32 twin to the
+# float64 twin, kernel to the float64 twin) are printed, and max_abs_err
+# covers all envs.
 MAX_FLIPS = 16
 ULP_DRAWS = 8
 
@@ -533,34 +559,42 @@ def nudge(t, gen):
     return torch.nextafter(t, torch.where(up, inf, -inf))
 
 
-def ill_conditioned(run, tols, gen, got):
+def ill_conditioned(run, tols, gen, got, draws=ULP_DRAWS):
     """Per env of a subset, how far the twins move when the inputs move one
     ulp: ``run(dtype, nudged)`` gives the twin's outputs in dtype on the
     subset's inputs, ``nudged`` with one-ulp moves; tols lists (atol, rtol,
     normwise) per output; got is the kernel's outputs on the subset.
     Returns the largest move of the float64 and of the float32 twin over
-    ULP_DRAWS draws, and the kernel's distance to the nearest twin run, all
-    in units of the tolerance (outputs_ratio)."""
-    moved, near = [], None
+    ``draws`` draws (none: zeros), the kernel's distance to the nearest
+    twin run, and on the inputs as they are the kernel's distance to the
+    float64 twin and the float32 twin's, all in units of the tolerance
+    (outputs_ratio)."""
+    moved, near, bases = [], None, []
     for dtype in (torch.float64, torch.float32):
         base = run(dtype, False)
+        bases.append(base)
         most = torch.zeros(got[0].shape[-1], dtype=torch.float64,
                            device=got[0].device)
-        for draw in range(ULP_DRAWS + 1):
+        for draw in range(draws + 1):
             out = base if draw == 0 else run(dtype, True)
             most = torch.maximum(most, outputs_ratio(out, base, tols))
             gap = outputs_ratio(got, out, tols)
             near = gap if near is None else torch.minimum(near, gap)
         moved.append(most)
-    return moved[0], moved[1], near
+    return (moved[0], moved[1], near, outputs_ratio(got, bases[0], tols),
+            outputs_ratio(bases[1], bases[0], tols))
 
 
-def set_aside(label, over, witness, got, failures):
-    """Of the envs over tolerance (bool (B,)), those ``witness`` (env ids
-    and the kernel's outputs on them -> ill_conditioned's moves) shows
-    ill-conditioned without the kernel, at most MAX_FLIPS: a twin moves by
-    more than the tolerance.  Appends a failure for any other.  Returns
-    the bool (B,) mask of the envs set aside."""
+def set_aside(label, ratio, witness, got, failures):
+    """Of the envs over tolerance (``ratio`` (B,), each env's distance to
+    the float32 twin in units of it, over 1), at most MAX_FLIPS, those where
+    the float32 twin is more than the tolerance from the float64 twin and
+    the kernel within it, or, of the others, those that ``witness`` (env
+    ids, the kernel's outputs on them and the number of nudged draws ->
+    ill_conditioned's numbers) shows ill-conditioned without the kernel (a
+    twin moves by more than the tolerance).  Appends a failure for any
+    other.  Returns the bool (B,) mask of the envs set aside."""
+    over = ratio > 1
     ids = torch.nonzero(over).flatten()
     aside = torch.zeros_like(over)
     if len(ids) > MAX_FLIPS:
@@ -571,16 +605,34 @@ def set_aside(label, over, witness, got, failures):
     print(f"check {label}: envs over tolerance {ids.tolist()}")
     if not len(ids):
         return aside
-    moved64, moved32, near = witness(ids, [g[..., ids] for g in got])
-    ill = (moved64 > 1) | (moved32 > 1)
-    aside[ids[ill]] = True
+    *_, k64, t32_64 = witness(ids, [g[..., ids] for g in got], 0)
+    yardstick = (t32_64 > 1) & (k64 <= 1)
+    # the one-ulp nudges only for the envs the float64 twin does not settle
+    ill = torch.zeros_like(yardstick)
+    rest = torch.nonzero(~yardstick).flatten()
+    moves = {}
+    if len(rest):
+        moved64, moved32, near, _, _ = witness(
+            ids[rest], [g[..., ids[rest]] for g in got])
+        ill[rest] = (moved64 > 1) | (moved32 > 1)
+        moves = dict(zip(rest.tolist(), zip(moved64.tolist(),
+                                            moved32.tolist(), near.tolist())))
+    aside[ids[ill | yardstick]] = True
     for i, env in enumerate(ids.tolist()):
-        print(f"  env {env}: under one-ulp input moves the float64 twin "
-              f"moves {float(moved64[i]):.3g}x and the float32 twin "
-              f"{float(moved32[i]):.3g}x the tolerance; the kernel is "
-              f"{float(near[i]):.3g}x it from the nearest twin run; "
-              f"{'set aside' if bool(ill[i]) else 'NOT ill-conditioned'}")
-    if not bool(ill.all()):
+        line = (f"  env {env}: the kernel {float(ratio[env]):.3g}x the "
+                f"tolerance from the float32 twin, the float32 twin "
+                f"{float(t32_64[i]):.3g}x from the float64 twin, the kernel "
+                f"{float(k64[i]):.3g}x from it")
+        if i in moves:
+            m64, m32, nr = moves[i]
+            line += (f"; under one-ulp input moves the float64 twin moves "
+                     f"{m64:.3g}x and the float32 twin {m32:.3g}x; the "
+                     f"kernel is {nr:.3g}x from the nearest twin run")
+        verdict = ("set aside: the float32 twin is off the float64 answer"
+                   if bool(yardstick[i]) else "set aside: ill-conditioned"
+                   if bool(ill[i]) else "NOT ill-conditioned")
+        print(f"{line}; {verdict}")
+    if not bool((ill | yardstick).all()):
         failures.append(f"{label} envs over tolerance, not ill-conditioned")
     return aside
 
@@ -609,8 +661,8 @@ def check_outputs(label, names, tols, got, want, failures, witness=None):
     and each output's error is printed over all envs and over the rest."""
     aside = None
     if witness is not None:
-        over = outputs_ratio(got, want, tols) > 1
-        aside = set_aside(label, over, witness, got, failures)
+        aside = set_aside(label, outputs_ratio(got, want, tols), witness,
+                          got, failures)
     worst = 0.0
     for name, g, w, (atol, rtol, normwise) in zip(names, got, want, tols):
         err, rel, excess = max_err(g, w, atol, rtol, normwise)
@@ -647,7 +699,7 @@ def k1_witness(args, gen, dr_params=None):
     from mujoco_playground_tpu_torch.ops import step as k1
     model, q, v, ctrl, ws, env_in, statics, fresh, ws_compare = args
 
-    def witness(ids, got):
+    def witness(ids, got, draws=ULP_DRAWS):
         def run(dtype, nudged):
             def sub(t, move=False):
                 if t is None:
@@ -659,7 +711,7 @@ def k1_witness(args, gen, dr_params=None):
                 sub(env_in), statics, fresh, ws_compare,
                 dr_params=None if dr_params is None else sub(dr_params)),
                 model)
-        return ill_conditioned(run, K1_TOLS, gen, got)
+        return ill_conditioned(run, K1_TOLS, gen, got, draws)
     return witness
 
 
@@ -668,7 +720,7 @@ def k3_witness(args, ws, gen):
     from mujoco_playground_tpu_torch.ops import newton as k3
     moved = (1, 3, 11)     # a_s, j_aref, c_aref
 
-    def witness(ids, got):
+    def witness(ids, got, draws=ULP_DRAWS):
         def run(dtype, nudged):
             def sub(i, t, move=False):
                 if not isinstance(t, torch.Tensor):
@@ -678,8 +730,69 @@ def k3_witness(args, ws, gen):
             return [k3.newton_solve_plain(
                 *(sub(i, t, i in moved) for i, t in enumerate(args)),
                 warmstart=sub(-1, ws, True))]
-        return ill_conditioned(run, [K3_TOL + (True,)], gen, got)
+        return ill_conditioned(run, [K3_TOL + (True,)], gen, got, draws)
     return witness
+
+
+def load_k3_misses(path, device):
+    """The K3 inputs that scripts/torch_k3_probe.py --save wrote: (each
+    newton_solve argument with the envs batch-last, the warm start, [(seed,
+    step, env)] of each env)."""
+    z = np.load(path)
+    args = []
+    for name in K3_ARG_NAMES:
+        v = z[name]
+        if name == "j_kind":
+            args.append(tuple(int(k) for k in v))
+        elif v.ndim == 0:
+            args.append(int(v))
+        else:
+            args.append(torch.from_numpy(v).to(device))
+    ids = list(zip(z["seed"].tolist(), z["step"].tolist(),
+                   z["env"].tolist()))
+    return args, torch.from_numpy(z["warmstart"]).to(device), ids
+
+
+def as_f64(args):
+    """A kernel's arguments with every float tensor in float64."""
+    return [t.double() if isinstance(t, torch.Tensor) and t.is_floating_point()
+            else t for t in args]
+
+
+def check_k3_f64(label, got, args, ws, failures):
+    """K3's qacc against its twin run in float64 on the same inputs, with
+    K3_TOL and no set-aside (the kernel computes in float64).  Returns the
+    worst env's distance in units of the tolerance."""
+    from mujoco_playground_tpu_torch.ops import newton as k3
+    want = k3.newton_solve_plain(*as_f64(args), warmstart=ws.double())
+    worst = float(outputs_ratio([got], [want], [K3_TOL + (True,)]).max())
+    print(f"check K3 {label} against the float64 twin: worst env "
+          f"{worst:.3g}x the tolerance")
+    if not worst <= 1:
+        failures.append(f"K3 {label} against the float64 twin")
+    return worst
+
+
+def k3_states_check(label, model, states, gen, failures):
+    """K3 against its twin (check_k3 with set_aside) and against the twin in
+    float64 (check_k3_f64) on the Newton system of ``states``
+    (engine.newton_inputs) with their warm start, outside the launch
+    counts: K3's counts are as they were before.  Returns the worst env's
+    distance to the float32 twin and to the float64 one in units of the
+    tolerance."""
+    from mujoco_playground_tpu_torch.ops import newton as k3
+    from mujoco_playground_tpu_torch.physics import engine
+    counts = (k3.newton_solve.launches, k3.newton_solve.launches_kernel_layout)
+    args = engine.newton_inputs(model, states.physics)
+    ws = states.physics.qacc_warmstart.T.contiguous()
+    got = k3.newton_solve(*args, warmstart=ws)
+    want = k3.newton_solve_plain(*args, warmstart=ws)
+    worst = float(outputs_ratio([got], [want], [K3_TOL + (True,)]).max())
+    check_k3(label, got, want, failures, k3_witness(args, ws, gen))
+    worst64 = check_k3_f64(label, got, args, ws, failures)
+    (k3.newton_solve.launches,
+     k3.newton_solve.launches_kernel_layout) = counts
+    return worst, worst64
 
 
 def check_repeat(label, first, second, failures):
@@ -849,9 +962,9 @@ def k1_ops(model, slot_active, fresh=True, ws_compare=False, env=True):
             + sm.iterations * newton_it + ws + euler + lidar + env_rows)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_F32):
     t_b = nbytes / PEAK_BYTES * 1e3
-    t_f = flops / PEAK_F32 * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -864,7 +977,7 @@ def k3_bytes(nv, nj, nc, na):
 
 
 def k3_ops(nv, jg, na, iterations, ls_iterations, warm):
-    """Float32 operations of one env of K3 (an FMA counts 2), counted over
+    """Float64 operations of one env of K3 (an FMA counts 2), counted over
     the dense rows csrc/newton_kernel.cu processes: every joint row (jg: the
     nonzero count of each row's G, which the Hessian and J^T f loops skip
     to) and the na contact rows in contact, each with all nv columns."""
@@ -1187,7 +1300,7 @@ def constraint_bl_phase(card, dev, cenv, cstates, logs):
     jg = (kl[2][:, :, 0] != 0).sum(0).tolist()
     flop = k3_ops(model.nv, jg, na, model.solver_iterations,
                   model.ls_iterations, True)
-    bound, by = bound_ms(nbytes * B_MAIN, flop * B_MAIN)
+    bound, by = bound_ms(nbytes * B_MAIN, flop * B_MAIN, PEAK_F64)
     ms_kl = [m for m, _ in k3_times["kernel layout"]]
     dev_kl = [d for _, d in k3_times["kernel layout"]]
     print(f"K3 kernel layout: plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
@@ -3343,6 +3456,7 @@ def parallel_phase(card, dev, main_rate):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one NVIDIA GPU")
     from mujoco_playground_tpu_torch.envs import (DomainRandomizedEnv,
@@ -3503,6 +3617,24 @@ def main():
              k3.newton_solve(*dense, warmstart=sys_ws),
              k3.newton_solve_plain(*dense, warmstart=sys_ws), failures)
     del dense
+    # the path-B envs where K3 once missed its twins (K3_MISSES), at their
+    # own batch: a partial block
+    t_check = time.perf_counter()
+    margs, mws, mids = load_k3_misses(K3_MISSES, dev)
+    got = k3.newton_solve(*margs, warmstart=mws)
+    want = k3.newton_solve_plain(*margs, warmstart=mws)
+    r = outputs_ratio([got], [want], [K3_TOL + (True,)])
+    active = margs[14].sum(0)
+    for e, (seed, step, env_id) in enumerate(mids):
+        print(f"K3 captured env {e} (seed {seed}, step {step}, env "
+              f"{env_id}, {int(active[e])} rows in contact): "
+              f"{float(r[e]):.3f}x the tolerance from the float32 twin")
+    check_k3(f"captured path-B envs B={len(mids)}", got, want, failures,
+             k3_witness(margs, mws, gen))
+    check_k3_f64(f"captured path-B envs B={len(mids)}", got, margs, mws,
+                 failures)
+    print(f"K3 captured envs: {time.perf_counter() - t_check:.1f} s")
+    del margs, mws, got, want
     if failures:
         fail(f"kernels disagree with their plain twins: {failures}")
 
@@ -3592,17 +3724,48 @@ def main():
     check_finite("path A", dstates, env.obs_size, B_MAIN)
 
     # -- phase 3c: path B, the compat manifolds through the staged step ----
+    # with K3 held against its twin on the states after every
+    # K3_PATH_EVERY-th step from K3_PATH_FROM on; the checks are left out of
+    # the launch counts and of the timed stretches (pairs of events)
     reset_counts()
     cstates = cenv.reset(B_MAIN)
+    stretches, path_checks, check_s = [], [], 0.0
     for i in range(STAGED_STEPS):
         if i == STAGED_WARMUP:
             torch.cuda.synchronize()
-            t0.record()
+            stretches.append([torch.cuda.Event(enable_timing=True), None])
+            stretches[-1][0].record()
         cstates = cenv.step_autoreset_batch(cstates, random_actions())
-    t1.record()
+        step = i + 1
+        if step < K3_PATH_FROM or step % K3_PATH_EVERY:
+            continue
+        if stretches:
+            stretches[-1][1] = torch.cuda.Event(enable_timing=True)
+            stretches[-1][1].record()
+        t_check = time.perf_counter()
+        path_checks.append((step, *k3_states_check(
+            f"path B step {step} B={B_MAIN}", cenv.model, cstates, gen,
+            failures)))
+        torch.cuda.synchronize()
+        check_s += time.perf_counter() - t_check
+        if step < STAGED_STEPS and stretches:
+            stretches.append([torch.cuda.Event(enable_timing=True), None])
+            stretches[-1][0].record()
+    if stretches[-1][1] is None:
+        stretches[-1][1] = torch.cuda.Event(enable_timing=True)
+        stretches[-1][1].record()
     torch.cuda.synchronize()
     launches_st = read_counts()
-    st_ms = t0.elapsed_time(t1) / (STAGED_STEPS - STAGED_WARMUP)
+    st_ms = (sum(a.elapsed_time(b) for a, b in stretches)
+             / (STAGED_STEPS - STAGED_WARMUP))
+    print(f"path B: K3 on the states after steps "
+          f"{[c[0] for c in path_checks]}: worst env "
+          f"{', '.join(f'{c[1]:.3f}' for c in path_checks)}x the tolerance "
+          f"from the float32 twin, "
+          f"{', '.join(f'{c[2]:.3g}' for c in path_checks)}x from the "
+          f"float64 twin; the {len(path_checks)} checks took {check_s:.1f} s")
+    if failures:
+        fail(f"K3 disagrees with its twin on path B's states: {failures}")
     print(f"path B (compat manifolds, staged step): B={B_MAIN}, "
           f"{STAGED_STEPS} steps, launches {launches_st}, {st_ms:.4f} "
           f"ms/env step, {B_MAIN / st_ms * 1e3:.0f} env-steps/s ({card})")
@@ -3775,7 +3938,8 @@ def main():
     jg = (sys_args[2][:, :, 0] != 0).sum(1).tolist()
     k3_flop = k3_ops(model.nv, jg, na, cenv.model.solver_iterations,
                      cenv.model.ls_iterations, True)
-    k3_bound, k3_by = bound_ms(k3_env_bytes * B_MAIN, k3_flop * B_MAIN)
+    k3_bound, k3_by = bound_ms(k3_env_bytes * B_MAIN, k3_flop * B_MAIN,
+                               PEAK_F64)
     # the plain physics step moves qpos, qvel, ctrl and the warm start in
     # and qpos, qvel, the frames and qacc out (K1e: and its parameters);
     # K2 with a per-env floor reads 4 B more per env
@@ -3866,6 +4030,7 @@ def main():
                 "bound_ms": bound, "bound_by": by, "library_ms": None}
 
     step_src = "mujoco_playground_tpu/ops/step_pallas.py:955"
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         entry("K1 step (fused env + fresh scan)", "step_kernel.cu", step_src,
               launches["K1"], k1_err, k1_ms, k1_dev_ms, k1_plain_ms,

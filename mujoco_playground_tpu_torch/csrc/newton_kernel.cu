@@ -53,8 +53,25 @@
 // block writes qacc, env index fastest.  No atomics, so two launches give
 // the same bits.  Shared memory caps the blocks on an SM: a pool row keeps
 // only its values (a row's forces and weights are recomputed where they
-// are used), so that 8 blocks of 28,000 B fit.  The code avoids branches
+// are used), so that 6 blocks of 34,752 B fit.  The code avoids branches
 // that lanes take differently (selects instead).
+//
+// Arithmetic.  The system stays float32 in shared memory, as it arrives
+// (exact in float64); everything computed from it (the iterate, the rows'
+// values, forces and weights, the Hessian, its factor, the gradient, the
+// step and the line search) is float64 (k3r), and qacc is rounded to
+// float32 on the way out.  In float32, 4 Newton iterations are not a
+// well-conditioned function of the system on path B: the exact line search
+// stops where a friction or contact row meets the kink of its cost, to
+// within ~1e-4 of the row's value, and the next iteration classifies that
+// row from an iterate whose float32 rounding moves the row's value by
+// about as much (the value is a difference of terms ~1e3 times larger), so
+// any two float32 programs that round differently (the twin on the card,
+// on the CPU, the JAX kernel, this kernel with or without contractions)
+// land on different sides on ~1 solve in 10^5 and end up to ~30x K3_TOL
+// apart (PERF.md).  In float64 the classification is the float64
+// twin's.  Built without contractions (ops/build.py) and with an IEEE
+// pivot (1 / sqrt), the card computes the same bits as the host build.
 #include "group.cuh"
 
 #define K3_MAX_NJ 16  // joint rows per env (the robot has 11)
@@ -69,10 +86,42 @@
 // its factor: K3_RPL row slots
 #define K3_RPL ((NV + K3_G - 1) / K3_G)
 
+typedef double k3r;  // what the solve computes in
 typedef Group<K3_G> K3Grp;
-typedef PerLaneG<float, K3_G> K3Lane;
-typedef PerLaneG<float[K3_RPL], K3_G> K3Slots;  // a value per row slot
-typedef PerLaneG<float[K3_RPL][NV], K3_G> K3Rows;
+typedef PerLaneG<k3r, K3_G> K3Lane;
+typedef PerLaneG<k3r[K3_RPL], K3_G> K3Slots;  // a value per row slot
+typedef PerLaneG<k3r[K3_RPL][NV], K3_G> K3Rows;
+
+// from_lane and group_sum (group.cuh) for k3r values
+#ifdef __CUDACC__
+template <class F>
+__device__ __forceinline__ k3r k3_from_lane(const K3Grp& g, int src, F&& f) {
+  return __shfl_sync(g.mask, f(g.lane), src, K3_G);
+}
+#else
+template <class F>
+static inline k3r k3_from_lane(const K3Grp&, int src, F&& f) {
+  return f(src);
+}
+#endif
+
+HD k3r k3_group_sum(const K3Grp& g, K3Lane& x) {
+#ifdef __CUDACC__
+  k3r s = x.v;
+  UNROLL for (int o = K3_G / 2; o > 0; o >>= 1)
+    s = s + __shfl_xor_sync(g.mask, s, o, K3_G);
+  return s;
+#else
+  (void)g;
+  k3r s[K3_G], n[K3_G];
+  for (int l = 0; l < K3_G; ++l) s[l] = x.v[l];
+  for (int o = K3_G / 2; o > 0; o >>= 1) {
+    for (int l = 0; l < K3_G; ++l) n[l] = s[l] + s[l ^ o];
+    for (int l = 0; l < K3_G; ++l) s[l] = n[l];
+  }
+  return s[0];
+#endif
+}
 
 struct K3Args {
   const float *M, *a_s, *G, *j_aref, *j_R, *j_floss, *j_active;
@@ -82,22 +131,24 @@ struct K3Args {
   int nj, nc, iterations, ls_iterations, eq_mask, fric_mask;
 };
 
-// One env's system and scratch in shared memory (2,276 B).
+// One env's system (float32, as read) and scratch (k3r) in shared memory
+// (2,856 B).
 struct K3Ws {
   float M[NV][NV];
   float a_s[NV], a0[NV];
-  float a[NV], delta[NV];  // the iterate, the step
   float G[K3_MAX_NJ][NV];
   uint32_t dof_rows[NV];  // per dof, the joint rows nonzero there, as bits
-  float jaref[K3_MAX_NJ], jrinv[K3_MAX_NJ], jfloss[K3_MAX_NJ],
+  float jaref[K3_MAX_NJ], jR[K3_MAX_NJ], jfloss[K3_MAX_NJ],
       jact[K3_MAX_NJ];
+  k3r a[NV], delta[NV];  // the iterate, the step
+  k3r jrinv[K3_MAX_NJ];  // 1 / R of each joint row
   union {
     float cact[K3_MAX_NC];  // the contact rows' active flags, until listed
     struct {
       // per joint row: value at the iterate, force, Hessian weight, value
       // of the step; M (a - a_s), M delta
-      float xj[K3_MAX_NJ], jf[K3_MAX_NJ], jw[K3_MAX_NJ], jdj[K3_MAX_NJ];
-      float mdiff[NV], md[NV];
+      k3r xj[K3_MAX_NJ], jf[K3_MAX_NJ], jw[K3_MAX_NJ], jdj[K3_MAX_NJ];
+      k3r mdiff[NV], md[NV];
     };
   };
   uint8_t idx[K3_MAX_NC];  // the rows in contact, ascending
@@ -105,14 +156,15 @@ struct K3Ws {
   int off, cap;            // its window of the pool: first row and size
 };
 
-// One row in contact in the pool (204 B): the K3_ROWF values read from
-// memory (R then replaced by 1/R), then its pyramid values at the iterate
-// (x4) and along the step (jd4).
+// One row in contact in the pool (248 B): the K3_ROWF float32 values read
+// from memory, then 1/R and its pyramid values at the iterate (x4) and
+// along the step (jd4).
 struct K3Row {
   float J[3][NV];
   float aref4[4];
-  float rinv, mu, act;
-  float x4[4], jd4[4];
+  float R, mu, act;
+  k3r rinv;
+  k3r x4[4], jd4[4];
 };
 #define K3_ROWF (3 * NV + 7)
 
@@ -153,51 +205,53 @@ HD void k3_copy_wait_prior() {
 #endif
 }
 
-HD float k3_dot(const float* x, const float* y) {
-  float s = 0.0f;
-  UNROLL for (int v = 0; v < NV; ++v) s = s + x[v] * y[v];
+template <class X, class Y>
+HD k3r k3_dot(const X* x, const Y* y) {
+  k3r s = 0.0;
+  UNROLL for (int v = 0; v < NV; ++v) s = s + (k3r)x[v] * (k3r)y[v];
   return s;
 }
 
 // The 4 pyramid-edge values of a row applied to a.
-HD void k3_pyr4(const K3Row& o, const float* a, float* p4) {
-  float an = 0.0f, at1 = 0.0f, at2 = 0.0f;
+template <class T>
+HD void k3_pyr4(const K3Row& o, const T* a, k3r* p4) {
+  k3r an = 0.0, at1 = 0.0, at2 = 0.0, mu = o.mu;
   UNROLL for (int v = 0; v < NV; ++v) {
-    an = an + o.J[0][v] * a[v];
-    at1 = at1 + o.J[1][v] * a[v];
-    at2 = at2 + o.J[2][v] * a[v];
+    an = an + (k3r)o.J[0][v] * (k3r)a[v];
+    at1 = at1 + (k3r)o.J[1][v] * (k3r)a[v];
+    at2 = at2 + (k3r)o.J[2][v] * (k3r)a[v];
   }
-  p4[0] = an + o.mu * at1;
-  p4[1] = an - o.mu * at1;
-  p4[2] = an + o.mu * at2;
-  p4[3] = an - o.mu * at2;
+  p4[0] = an + mu * at1;
+  p4[1] = an - mu * at1;
+  p4[2] = an + mu * at2;
+  p4[3] = an - mu * at2;
 }
 
 // A row's values at the iterate a.
-HD void k3_keep_at(K3Row& o, const float* a) {
-  float p4[4];
+HD void k3_keep_at(K3Row& o, const k3r* a) {
+  k3r p4[4];
   k3_pyr4(o, a, p4);
-  UNROLL for (int k = 0; k < 4; ++k) o.x4[k] = p4[k] - o.aref4[k];
+  UNROLL for (int k = 0; k < 4; ++k) o.x4[k] = p4[k] - (k3r)o.aref4[k];
 }
 
 // A row's forces and Hessian weights at its values x4: cw = fn, ft1, ft2,
 // W00, W01, W02, W11, W22.
-HD void k3_weights(const K3Row& o, float* cw) {
-  float f4[4], w4[4];
+HD void k3_weights(const K3Row& o, k3r* cw) {
+  k3r f4[4], w4[4], mu = o.mu, act = o.act;
   UNROLL for (int k = 0; k < 4; ++k) {
-    float x = o.x4[k];
-    f4[k] = fmaxf(-x * o.rinv, 0.0f) * o.act;
-    w4[k] = (x < 0.0f ? o.act : 0.0f) * o.rinv;
+    k3r x = o.x4[k];
+    f4[k] = fmax(-x * o.rinv, 0.0) * act;
+    w4[k] = (x < 0.0 ? act : 0.0) * o.rinv;
   }
   cw[0] = f4[0] + f4[1] + f4[2] + f4[3];
-  cw[1] = o.mu * (f4[0] - f4[1]);
-  cw[2] = o.mu * (f4[2] - f4[3]);
-  float w01 = w4[0] + w4[1], w23 = w4[2] + w4[3];
+  cw[1] = mu * (f4[0] - f4[1]);
+  cw[2] = mu * (f4[2] - f4[3]);
+  k3r w01 = w4[0] + w4[1], w23 = w4[2] + w4[3];
   cw[3] = w01 + w23;
-  cw[4] = o.mu * (w4[0] - w4[1]);
-  cw[5] = o.mu * (w4[2] - w4[3]);
-  cw[6] = o.mu * o.mu * w01;
-  cw[7] = o.mu * o.mu * w23;
+  cw[4] = mu * (w4[0] - w4[1]);
+  cw[5] = mu * (w4[2] - w4[3]);
+  cw[6] = mu * mu * w01;
+  cw[7] = mu * mu * w23;
 }
 
 // The row of a B-long slab that holds an entry of the system, in the
@@ -220,44 +274,44 @@ HD int k3_kind(const K3Args& A, int r) {
 }
 
 // Force and Hessian weight of joint row r at constraint value x.
-HD void k3_joint_force(const K3Args& A, const K3Ws& w, int r, float x,
-                       float* f, float* q) {
-  float raw = -x * w.jrinv[r];
-  float floss = w.jfloss[r];
+HD void k3_joint_force(const K3Args& A, const K3Ws& w, int r, k3r x, k3r* f,
+                       k3r* q) {
+  k3r raw = -x * w.jrinv[r];
+  k3r floss = w.jfloss[r], act = w.jact[r];
   int kind = k3_kind(A, r);  // selects, not branches: lanes differ in kind
-  float fr = fminf(fmaxf(raw, -floss), floss);
-  float qr = fabsf(raw) < floss ? 1.0f : 0.0f;
-  float fs = fmaxf(raw, 0.0f), qs = raw > 0.0f ? 1.0f : 0.0f;
-  *f = (kind == 0 ? raw : (kind == 1 ? fr : fs)) * w.jact[r];
-  *q = (kind == 0 ? 1.0f : (kind == 1 ? qr : qs)) * w.jact[r];
+  k3r fr = fmin(fmax(raw, -floss), floss);
+  k3r qr = fabs(raw) < floss ? 1.0 : 0.0;
+  k3r fs = fmax(raw, 0.0), qs = raw > 0.0 ? 1.0 : 0.0;
+  *f = (kind == 0 ? raw : (kind == 1 ? fr : fs)) * act;
+  *q = (kind == 0 ? 1.0 : (kind == 1 ? qr : qs)) * act;
 }
 
 // Primal cost of joint row r at vec.
-HD float k3_joint_cost(const K3Args& A, const K3Ws& w, int r,
-                       const float* vec) {
-  float x = k3_dot(w.G[r], vec) - w.jaref[r];
-  float rinv = w.jrinv[r], floss = w.jfloss[r];
-  float quad = 0.5f * x * x * rinv;
-  float rc;
+HD k3r k3_joint_cost(const K3Args& A, const K3Ws& w, int r,
+                     const float* vec) {
+  k3r x = k3_dot(w.G[r], vec) - (k3r)w.jaref[r];
+  k3r rinv = w.jrinv[r], floss = w.jfloss[r];
+  k3r quad = 0.5 * x * x * rinv;
+  k3r rc;
   int kind = k3_kind(A, r);
   if (kind == 0) {
     rc = quad;
   } else if (kind == 1) {
-    float lin = floss * fabsf(x) - 0.5f * floss * floss / rinv;
-    rc = fabsf(x) * rinv < floss ? quad : lin;
+    k3r lin = floss * fabs(x) - 0.5 * floss * floss / rinv;
+    rc = fabs(x) * rinv < floss ? quad : lin;
   } else {
-    rc = x < 0.0f ? quad : 0.0f;
+    rc = x < 0.0 ? quad : 0.0;
   }
-  return rc * w.jact[r];
+  return rc * (k3r)w.jact[r];
 }
 
 // Primal cost of a row in contact at vec.
-HD float k3_contact_cost(const K3Row& o, const float* vec) {
-  float p4[4], c = 0.0f;
+HD k3r k3_contact_cost(const K3Row& o, const float* vec) {
+  k3r p4[4], c = 0.0;
   k3_pyr4(o, vec, p4);
   UNROLL for (int k = 0; k < 4; ++k) {
-    float x = p4[k] - o.aref4[k];
-    if (x < 0.0f) c = c + 0.5f * x * x * o.rinv * o.act;
+    k3r x = p4[k] - (k3r)o.aref4[k];
+    if (x < 0.0) c = c + 0.5 * x * x * o.rinv * (k3r)o.act;
   }
   return c;
 }
@@ -269,37 +323,37 @@ HD float k3_contact_cost(const K3Row& o, const float* vec) {
 // shuffles, and each lane updates its rows' trailing entries and right-hand
 // sides, so the forward solve rides along; each entry subtracts the same
 // products in the same order as a left-looking factorization.  Column j is
-// scaled by the pivot's rsqrt one step later, when no lane reads it any
-// more.  The forward and back substitutions multiply by that rsqrt, 1 /
-// L[j][j] to within a few ulp, instead of dividing by L[j][j].  The back
+// scaled by 1 / sqrt of the pivot one step later, when no lane reads it
+// any more.  The forward and back substitutions multiply by that factor, 1
+// / L[j][j] to within an ulp, instead of dividing by L[j][j].  The back
 // substitution runs on every lane alike, each term's L[k][i] taken from
 // the lane that holds row k.
-HD void k3_chol_solve(const K3Grp& g, K3Rows& row, K3Slots& t, float* x) {
-  K3Slots inv;  // row i's pivot rsqrt, where t holds row i's entry
-  float d_prev = 1.0f, y_prev = 0.0f;  // step j - 1's pivot rsqrt and y
+HD void k3_chol_solve(const K3Grp& g, K3Rows& row, K3Slots& t, k3r* x) {
+  K3Slots inv;  // row i's 1 / sqrt(pivot), where t holds row i's entry
+  k3r d_prev = 1.0, y_prev = 0.0;  // step j - 1's factor and y
   UNROLL for (int j = 0; j < NV; ++j) {
-    float d_j = 0.0f, y_j = 0.0f;
+    k3r d_j = 0.0, y_j = 0.0;
     lanes(g, [&](int lane) {
-      float ajj = from_lane(g, j % K3_G,
-                            [&](int l) { return row.at(l)[j / K3_G][j]; });
-      float tj = from_lane(g, j % K3_G,
-                           [&](int l) { return t.at(l)[j / K3_G]; });
-      float d = rsqrtf(fmaxf(ajj, 1e-30f));
-      float yj = tj * d;
-      float lij[K3_RPL];
+      k3r ajj = k3_from_lane(g, j % K3_G,
+                             [&](int l) { return row.at(l)[j / K3_G][j]; });
+      k3r tj = k3_from_lane(g, j % K3_G,
+                            [&](int l) { return t.at(l)[j / K3_G]; });
+      k3r d = 1.0 / sqrt(fmax(ajj, 1e-30));
+      k3r yj = tj * d;
+      k3r lij[K3_RPL];
       UNROLL for (int q = 0; q < K3_RPL; ++q) lij[q] = row.at(lane)[q][j] * d;
       UNROLL for (int k = j + 1; k < NV; ++k) {
-        float lkj = from_lane(g, k % K3_G,
-                              [&](int l) { return row.at(l)[k / K3_G][j]; });
+        k3r lkj = k3_from_lane(g, k % K3_G,
+                               [&](int l) { return row.at(l)[k / K3_G][j]; });
         UNROLL for (int q = 0; q < K3_RPL; ++q) {
-          float* r = row.at(lane)[q];
+          k3r* r = row.at(lane)[q];
           r[k] = k <= lane + q * K3_G ? r[k] - lij[q] * (lkj * d) : r[k];
         }
       }
       UNROLL for (int q = 0; q < K3_RPL; ++q) {
         int i = lane + q * K3_G;
-        float* r = row.at(lane)[q];
-        float& ti = t.at(lane)[q];
+        k3r* r = row.at(lane)[q];
+        k3r& ti = t.at(lane)[q];
         ti = i > j ? ti - lij[q] * yj : ti;
         if (j > 0) {
           r[j - 1] = r[j - 1] * d_prev;
@@ -320,13 +374,14 @@ HD void k3_chol_solve(const K3Grp& g, K3Rows& row, K3Slots& t, float* x) {
     }
   });
   UNROLL for (int i = NV - 1; i >= 0; --i) {
-    float s = from_lane(g, i % K3_G, [&](int l) { return t.at(l)[i / K3_G]; });
+    k3r s =
+        k3_from_lane(g, i % K3_G, [&](int l) { return t.at(l)[i / K3_G]; });
     UNROLL for (int k = i + 1; k < NV; ++k)
-      s = s - from_lane(g, k % K3_G,
-                        [&](int l) { return row.at(l)[k / K3_G][i]; }) *
+      s = s - k3_from_lane(g, k % K3_G,
+                           [&](int l) { return row.at(l)[k / K3_G][i]; }) *
                   x[k];
-    x[i] = s * from_lane(g, i % K3_G,
-                         [&](int l) { return inv.at(l)[i / K3_G]; });
+    x[i] = s * k3_from_lane(g, i % K3_G,
+                            [&](int l) { return inv.at(l)[i / K3_G]; });
   }
 }
 
@@ -359,7 +414,7 @@ HD void k3_load_block(K3Block& blk, const K3Args& A, long b0, int tid,
   if (A.ws != nullptr) rows(A.ws, NV, [](K3Ws& w) { return w.a0; }, same);
   rows(A.G, A.nj * NV, [](K3Ws& w) { return &w.G[0][0]; }, g_at);
   rows(A.j_aref, A.nj, [](K3Ws& w) { return w.jaref; }, same);
-  rows(A.j_R, A.nj, [](K3Ws& w) { return w.jrinv; }, same);  // R for now
+  rows(A.j_R, A.nj, [](K3Ws& w) { return w.jR; }, same);
   rows(A.j_floss, A.nj, [](K3Ws& w) { return w.jfloss; }, same);
   rows(A.j_active, A.nj, [](K3Ws& w) { return w.jact; }, same);
   k3_copy_commit();
@@ -440,7 +495,7 @@ HD void k3_finish_rows(const K3Grp& g, K3Block& blk, const K3Ws& w, int n,
   stage(g, [&](int lane) {
     for (int i = lane; i < n; i += K3_G) {
       K3Row& o = blk.pool[w.off + i];
-      o.rinv = 1.0f / o.rinv;
+      o.rinv = 1.0 / (k3r)o.R;
       if (keep >= K3_KEEP_AT) k3_keep_at(o, w.a);
       if (keep >= K3_KEEP_STEP) k3_pyr4(o, w.delta, o.jd4);
     }
@@ -491,23 +546,23 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
         if (w.G[r][v] != 0.0f) rows |= 1u << r;
       w.dof_rows[v] = rows;
     }
-    for (int r = lane; r < nj; r += K3_G) w.jrinv[r] = 1.0f / w.jrinv[r];
+    for (int r = lane; r < nj; r += K3_G) w.jrinv[r] = 1.0 / (k3r)w.jR[r];
   });
 
   // start: the warm start, or with MuJoCo's pick the cheaper of it and a_s
   if (A.ws != nullptr) {
     K3Lane p0, p1;
     lanes(g, [&](int lane) {
-      float s0 = 0.0f, s1 = 0.0f;
+      k3r s0 = 0.0, s1 = 0.0;
       for (int r = lane; r < nj; r += K3_G) {
         s0 = s0 + k3_joint_cost(A, w, r, w.a0);
         s1 = s1 + k3_joint_cost(A, w, r, w.a_s);
       }
       for (int v = lane; v < NV; v += K3_G) {  // the smooth quadratic
-        float md = 0.0f;
+        k3r md = 0.0;
         UNROLL for (int u = 0; u < NV; ++u)
-          md = md + w.M[v][u] * (w.a0[u] - w.a_s[u]);
-        s0 = s0 + 0.5f * ((w.a0[v] - w.a_s[v]) * md);
+          md = md + (k3r)w.M[v][u] * ((k3r)w.a0[u] - (k3r)w.a_s[u]);
+        s0 = s0 + 0.5 * (((k3r)w.a0[v] - (k3r)w.a_s[v]) * md);
       }
       p0.at(lane) = s0;
       p1.at(lane) = s1;
@@ -520,7 +575,7 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
         }
       });
     });
-    bool use_ws = group_sum(g, p0) < group_sum(g, p1);
+    bool use_ws = k3_group_sum(g, p0) < k3_group_sum(g, p1);
     stage(g, [&](int lane) {
       for (int v = lane; v < NV; v += K3_G)
         w.a[v] = use_ws ? w.a0[v] : w.a_s[v];
@@ -537,7 +592,7 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
       int nr = resident ? na : 0;
       for (int item = lane; item < nj + nr + NV; item += K3_G) {
         if (item < nj) {
-          float x = k3_dot(w.G[item], w.a) - w.jaref[item], f, q;
+          k3r x = k3_dot(w.G[item], w.a) - (k3r)w.jaref[item], f, q;
           k3_joint_force(A, w, item, x, &f, &q);
           w.xj[item] = x;
           w.jf[item] = f;
@@ -546,9 +601,9 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
           k3_keep_at(pool[item - nj], w.a);
         } else {
           int v = item - nj - nr;
-          float md = 0.0f;
+          k3r md = 0.0;
           UNROLL for (int u = 0; u < NV; ++u)
-            md = md + w.M[v][u] * (w.a[u] - w.a_s[u]);
+            md = md + (k3r)w.M[v][u] * (w.a[u] - (k3r)w.a_s[u]);
           w.mdiff[v] = md;
         }
       }
@@ -563,18 +618,19 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
     K3Slots t;
     lanes(g, [&](int lane) {
       UNROLL for (int q = 0; q < K3_RPL; ++q) {
-        float* h = row.at(lane)[q];
+        k3r* h = row.at(lane)[q];
         int i = lane + q * K3_G;
-        t.at(lane)[q] = 0.0f;
-        UNROLL for (int k = 0; k < NV; ++k) h[k] = i < NV ? w.M[k][i] : 0.0f;
+        t.at(lane)[q] = 0.0;
+        UNROLL for (int k = 0; k < NV; ++k)
+          h[k] = i < NV ? (k3r)w.M[k][i] : 0.0;
         if (i >= NV) continue;
-        float jtf = 0.0f;
+        k3r jtf = 0.0;
         for (uint32_t m = w.dof_rows[i]; m; m &= m - 1u) {
           int r = lowest_bit(m);
           const float* G = w.G[r];
-          float gi = G[i], wr = w.jw[r];
+          k3r gi = G[i], wr = w.jw[r];
           UNROLL for (int k = 0; k < NV; ++k)
-            h[k] = h[k] + (G[k] * wr) * gi;
+            h[k] = h[k] + ((k3r)G[k] * wr) * gi;
           jtf = jtf + gi * w.jf[r];
         }
         t.at(lane)[q] = jtf;
@@ -584,19 +640,19 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
       lanes(g, [&](int lane) {
         for (int c = 0; c < n; ++c) {
           const K3Row& o = pool[c];
-          float cw[8];
+          k3r cw[8];
           k3_weights(o, cw);
           UNROLL for (int q = 0; q < K3_RPL; ++q) {
             int i = lane + q * K3_G;
             if (i >= NV) continue;
-            float* h = row.at(lane)[q];
-            float jn = o.J[0][i], jt1 = o.J[1][i], jt2 = o.J[2][i];
-            float u1 = cw[3] * jn + cw[4] * jt1 + cw[5] * jt2;
-            float u2 = cw[4] * jn + cw[6] * jt1;
-            float u3 = cw[5] * jn + cw[7] * jt2;
+            k3r* h = row.at(lane)[q];
+            k3r jn = o.J[0][i], jt1 = o.J[1][i], jt2 = o.J[2][i];
+            k3r u1 = cw[3] * jn + cw[4] * jt1 + cw[5] * jt2;
+            k3r u2 = cw[4] * jn + cw[6] * jt1;
+            k3r u3 = cw[5] * jn + cw[7] * jt2;
             UNROLL for (int k = 0; k < NV; ++k)
-              h[k] = h[k] + (o.J[0][k] * u1 + o.J[1][k] * u2 +
-                             o.J[2][k] * u3);
+              h[k] = h[k] + ((k3r)o.J[0][k] * u1 + (k3r)o.J[1][k] * u2 +
+                             (k3r)o.J[2][k] * u3);
             t.at(lane)[q] =
                 t.at(lane)[q] + (jn * cw[0] + jt1 * cw[1] + jt2 * cw[2]);
           }
@@ -607,14 +663,14 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
       UNROLL for (int q = 0; q < K3_RPL; ++q) {
         int i = lane + q * K3_G;
         if (i >= NV) continue;
-        float* h = row.at(lane)[q];
+        k3r* h = row.at(lane)[q];
         UNROLL for (int k = 0; k < NV; ++k)
-          if (k == i) h[k] = h[k] + 1e-9f;
+          if (k == i) h[k] = h[k] + 1e-9;
         t.at(lane)[q] = -(w.mdiff[i] - t.at(lane)[q]);
       }
     });
     {
-      float x[NV];
+      k3r x[NV];
       k3_chol_solve(g, row, t, x);
       single(g, [&] {
         UNROLL for (int v = 0; v < NV; ++v) w.delta[v] = x[v];
@@ -637,18 +693,18 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
         }
       }
     });
-    float dMd = 0.0f, dMas = 0.0f;
+    k3r dMd = 0.0, dMas = 0.0;
     for (int v = 0; v < NV; ++v) {
       dMd = dMd + w.delta[v] * w.md[v];
       dMas = dMas + w.delta[v] * w.mdiff[v];
     }
-    float alpha = 1.0f;
+    k3r alpha = 1.0;
     for (int ls = 0; ls < A.ls_iterations; ++ls) {
       K3Lane pd, pdd;
       lanes(g, [&](int lane) {
-        float sd = 0.0f, sdd = 0.0f;
+        k3r sd = 0.0, sdd = 0.0;
         for (int r = lane; r < nj; r += K3_G) {
-          float jd = w.jdj[r], f, q;
+          k3r jd = w.jdj[r], f, q;
           k3_joint_force(A, w, r, w.xj[r] + alpha * jd, &f, &q);
           sd = sd + jd * f;
           sdd = sdd + q * w.jrinv[r] * (jd * jd);
@@ -658,14 +714,15 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
       });
       k3_pass<KL>(g, A, blk, w, b, K3_KEEP_STEP, [&](int, int n) {
         lanes(g, [&](int lane) {
-          float sd = pd.at(lane), sdd = pdd.at(lane);
+          k3r sd = pd.at(lane), sdd = pdd.at(lane);
           for (int i = lane; i < n; i += K3_G) {
             const K3Row& o = pool[i];
+            k3r act = o.act;
             UNROLL for (int k = 0; k < 4; ++k) {
-              float jd = o.jd4[k];
-              float x = o.x4[k] + alpha * jd;
-              float f = fmaxf(-x * o.rinv, 0.0f) * o.act;
-              float q = x < 0.0f ? o.act : 0.0f;
+              k3r jd = o.jd4[k];
+              k3r x = o.x4[k] + alpha * jd;
+              k3r f = fmax(-x * o.rinv, 0.0) * act;
+              k3r q = x < 0.0 ? act : 0.0;
               sd = sd + jd * f;
               sdd = sdd + q * o.rinv * jd * jd;
             }
@@ -674,9 +731,9 @@ HD void k3_solve(const K3Grp& g, const K3Args& A, K3Block& blk, int e,
           pdd.at(lane) = sdd;
         });
       });
-      float dphi = (dMas + alpha * dMd) - group_sum(g, pd);
-      float ddphi = dMd + group_sum(g, pdd);
-      alpha = fminf(fmaxf(alpha - dphi / fmaxf(ddphi, 1e-12f), 0.0f), 2.0f);
+      k3r dphi = (dMas + alpha * dMd) - k3_group_sum(g, pd);
+      k3r ddphi = dMd + k3_group_sum(g, pdd);
+      alpha = fmin(fmax(alpha - dphi / fmax(ddphi, 1e-12), 0.0), 2.0);
     }
     stage(g, [&](int lane) {
       for (int v = lane; v < NV; v += K3_G)
@@ -690,7 +747,7 @@ HD void k3_store_block(K3Block& blk, const K3Args& A, long b0, int tid,
                        int nthr) {
   for (int i = tid; i < NV * K3_ENVS; i += nthr) {
     int v = i / K3_ENVS, e = i % K3_ENVS;
-    if (b0 + e < A.B) A.qacc[v * A.B + b0 + e] = blk.env[e].a[v];
+    if (b0 + e < A.B) A.qacc[v * A.B + b0 + e] = (float)blk.env[e].a[v];
   }
 }
 

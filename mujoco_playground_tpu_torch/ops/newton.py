@@ -16,7 +16,11 @@ arrives from memory, batch-last, and its twin ``newton_solve_plain`` feeds
 the system in either of two layouts, as ``newton_solve_pallas`` does:
 row-major (``solver_batched.newton_args``) or, with ``pre_transposed``,
 the kernel layout ``physics/constraint_bl.py`` assembles, each read in
-place by its own instantiation of the kernel.
+place by its own instantiation of the kernel.  The kernel computes the
+solve in float64 from the float32 system and returns float32 qacc: its
+answer is the twin's run in float64 (``newton_solve_plain`` on float64
+inputs), where the float32 twin's can land on the other side of a row's
+kink.
 """
 from __future__ import annotations
 

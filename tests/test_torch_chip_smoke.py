@@ -245,3 +245,38 @@ def test_capability_phase_runs_the_protocols():
     assert (rc.env_type, rc.num_envs, rc.unroll_length, rc.reference_compat,
             rc.ent_coef) == ("simple", 1, 2048, True, 0.0)
     assert chip_smoke.CAP_EPISODE_BOUNDS == (-52000.0, -49000.0)
+
+
+@pytest.mark.parametrize("moved64,moved32,k64,t32_64,admitted", [
+    (0.0, 0.0, 0.5, 20.0, True),    # the float32 twin off the float64 one
+    (0.0, 0.0, 1.5, 20.0, False),   # ... but the kernel off it too
+    (0.0, 0.0, 0.5, 0.9, False),    # the float32 twin on the float64 one
+    (2.0, 0.0, 30.0, 0.1, True),    # ill-conditioned: the twins move
+], ids=["yardstick-off", "kernel-off-too", "yardstick-on", "ill"])
+def test_set_aside_rules(moved64, moved32, k64, t32_64, admitted):
+    """set_aside admits an env over the tolerance where one-ulp input moves
+    move a twin beyond it, or where the float32 twin is more than the
+    tolerance from the float64 twin and the kernel within it; any other
+    env is a failure."""
+    ratio = torch.tensor([0.2, 3.0, 0.1], dtype=torch.float64)
+
+    def witness(ids, got, draws=chip_smoke.ULP_DRAWS):
+        assert ids.tolist() == [1] and got[0].shape == (2, 1)
+        one = torch.ones(1, dtype=torch.float64)
+        moves = one if draws else 0 * one
+        return (moved64 * moves, moved32 * moves, k64 * one, k64 * one,
+                t32_64 * one)
+
+    failures = []
+    aside = chip_smoke.set_aside("t", ratio, witness, [torch.zeros(2, 3)],
+                                 failures)
+    assert aside.tolist() == [False, admitted, False]
+    assert bool(failures) != admitted
+
+
+def test_set_aside_counts_both_kinds_toward_max_flips():
+    ratio = torch.full((chip_smoke.MAX_FLIPS + 1,), 2.0)
+    failures = []
+    aside = chip_smoke.set_aside("t", ratio, None, [torch.zeros(1, 17)],
+                                 failures)
+    assert not bool(aside.any()) and failures
