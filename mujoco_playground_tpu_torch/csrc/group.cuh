@@ -5,7 +5,7 @@
 // A program is a sequence of stage() calls: in each, lane l does the items
 // l, l + G, ..., then the group waits at __syncwarp.  Work on registers
 // (PerLane values) runs in lanes() with no barrier and trades values by
-// from_lane (a shuffle) and group_sum (a fixed butterfly).  Code outside
+// from_lane (a shuffle).  Code outside
 // these calls is uniform: every lane of the group runs it on the same
 // values.  The host build (no __CUDACC__) runs each stage's lanes 0..G-1
 // one after another, runs uniform code once, and keeps one copy of each
@@ -111,26 +111,6 @@ static inline float from_lane(const Group<G>&, int src, F&& f) {
   return f(src);
 }
 #endif
-
-// The sum of x over the group's lanes, the same bits on every lane: a fixed
-// butterfly (lane l adds lane l ^ o's partial for o = G/2, ..., 1).
-template <int G>
-HD float group_sum(const Group<G>& g, PerLaneG<float, G>& x) {
-#ifdef __CUDACC__
-  float s = x.v;
-  UNROLL for (int o = G / 2; o > 0; o >>= 1)
-    s = s + __shfl_xor_sync(g.mask, s, o, G);
-  return s;
-#else
-  float s[G], n[G];
-  for (int l = 0; l < G; ++l) s[l] = x.v[l];
-  for (int o = G / 2; o > 0; o >>= 1) {
-    for (int l = 0; l < G; ++l) n[l] = s[l] + s[l ^ o];
-    for (int l = 0; l < G; ++l) s[l] = n[l];
-  }
-  return s[0];
-#endif
-}
 
 // Bit l set where f(l) holds, on every lane alike (every lane of the group
 // calls it).

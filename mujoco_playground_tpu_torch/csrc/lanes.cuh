@@ -58,6 +58,27 @@ HD void qrot(const float* q, const float* v, float* out) {
   for (int k = 0; k < 3; ++k) out[k] = v[k] + 2.0f * (q[0] * uv[k] + uuv[k]);
 }
 
+// sin and cos of x by a fixed sequence of float32 operations, the same as
+// ops/lanes.py sincos, so that kernel K1 and its plain twin compute the same
+// bits on either device (CUDA's sincosf and the host's libm differ from
+// PyTorch's CPU kernels in the last bit, and a frame one ulp apart can
+// pick another contact point).  x - k pi/2 with k the nearest quadrant, pi/2
+// in three parts (Cody and Waite; k pi/2 is exact for |k| < 2^16), then
+// cephes' minimax polynomials on [-pi/4, pi/4] and the quadrant's signs.
+HD void sincos_k1(float x, float* s, float* c) {
+  float k = floorf(x * 6.366197467e-01f + 0.5f);
+  float r = ((x - k * 1.570312500e+00f) - k * 4.837512970e-04f) -
+            k * 7.549790126e-08f;
+  float z = r * r;
+  float ps = ((-1.951529557e-04f * z + 8.332161233e-03f) * z -
+              1.666665524e-01f) * z * r + r;
+  float pc = ((2.443315680e-05f * z - 1.388731645e-03f) * z +
+              4.166664556e-02f) * z * z - 0.5f * z + 1.0f;
+  float q = k - 4.0f * floorf(k * 0.25f);
+  *s = q == 0.0f ? ps : q == 1.0f ? pc : q == 2.0f ? -ps : -pc;
+  *c = q == 0.0f ? pc : q == 1.0f ? -ps : q == 2.0f ? -pc : ps;
+}
+
 // 3x3 rotation matrix (row-major) of q.
 HD void qmat(const float* q, float* R) {
   float w = q[0], x = q[1], y = q[2], z = q[3];

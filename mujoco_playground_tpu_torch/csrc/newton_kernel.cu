@@ -92,7 +92,8 @@ typedef PerLaneG<k3r, K3_G> K3Lane;
 typedef PerLaneG<k3r[K3_RPL], K3_G> K3Slots;  // a value per row slot
 typedef PerLaneG<k3r[K3_RPL][NV], K3_G> K3Rows;
 
-// from_lane and group_sum (group.cuh) for k3r values
+// from_lane (group.cuh) for k3r values, and their sum over the group by a
+// fixed butterfly (lane l adds lane l ^ o's partial, o = G/2, ..., 1)
 #ifdef __CUDACC__
 template <class F>
 __device__ __forceinline__ k3r k3_from_lane(const K3Grp& g, int src, F&& f) {

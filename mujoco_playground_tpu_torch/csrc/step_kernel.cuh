@@ -34,9 +34,8 @@
 // then the group waits at __syncwarp.  The six 12x12 Cholesky solves keep
 // one row per lane in registers and trade columns by warp shuffles, with no
 // barrier between their steps (group_chol_solve in step_model.cuh).
-// Reductions add per-lane partials in a fixed order (a serial loop or a
-// fixed shuffle butterfly), never by atomics, so two launches on the same
-// inputs give the same bits.  Scalar tails with no parallelism worth a
+// Reductions run in the plain twin's order, never by atomics, so two
+// launches on the same inputs give the same bits, and the twin's.  Scalar tails with no parallelism worth a
 // barrier (the env rows) run on lane 0.
 // Tables that lanes index by their own item are read from a global copy of
 // the model (g_k1, through L1); reads at one address for the warp stay in
@@ -121,7 +120,7 @@ HD void quat_integrate(const float* q, const float* w, float dt, float* out) {
   float angle = sqrtf(w2);
   bool nz = angle > 1e-14f;
   float sh, ch;
-  sincosf(angle * dt * 0.5f, &sh, &ch);
+  sincos_k1(angle * dt * 0.5f, &sh, &ch);
   float s = nz ? sh / angle : 0.0f;
   float dq[4] = {ch, w[0] * s, w[1] * s, w[2] * s};
   float o[4];
@@ -219,6 +218,8 @@ HD void k1_physics(const Grp& g, Ws<DR>& w, long b, const K1Args& A) {
         }
         if (v == u)
           s = s + param(dr, DR_DOF_ARMATURE + v, g_k1.dof_armature[v]);
+        if constexpr (!DR)
+          if ((g_k1.m_static[v] >> u) & 1u) s = g_k1.m_value[v][u];
         w.M[v][u] = s;
         w.M[u][v] = s;
       } else {
@@ -313,6 +314,8 @@ HD void k1_physics(const Grp& g, Ws<DR>& w, long b, const K1Args& A) {
     FOR_ITEMS(i, lane, nc) {
       int s = co.act[i];
       contact_row(s, co.slot[s], pre.S, anchor, w.vel, w.cr[i], dr);
+      if (i == 0 || g_k1.slot_run[s] != g_k1.slot_run[co.act[i - 1]])
+        w.cr[i].dofs |= ROW_RUN;
     }
   });
 
@@ -333,6 +336,8 @@ HD void k1_physics(const Grp& g, Ws<DR>& w, long b, const K1Args& A) {
       if constexpr (DR) hd = h * param(dr, DR_DOF_DAMPING + v, 0.0f);
       for (int k = 0; k < i; ++k) ech.A[i][k] = w.M[v][p[k]];
       ech.A[i][i] = w.M[v][v] + hd;
+      if constexpr (!DR)
+        if ((g_k1.mh_static >> v) & 1u) ech.A[i][i] = g_k1.mh_value[v];
       ech.t[i] = s + hd * w.vel[v];
     }
   });

@@ -122,6 +122,19 @@ struct K1Const {
   int off_w[NV * (NV - 1) / 2];
   int dof_jrows[NV][DOF_JROWS];  // per dof the joint rows that touch it,
                                  // ascending, -1 padded
+  // per slot its run: consecutive slots of one body share one (the twin's
+  // contact groups, ops/step.py physics_plain)
+  int slot_run[NSLOT];
+  // the entries of M, and of the diagonal of M + h D, that do not depend
+  // on the state (such as the sum of the masses on a free joint's
+  // translations): the twin folds them into constants while it builds its
+  // program, in float64, and rounds them once, so the models' own-parameter
+  // builds take them from here instead of summing them in float32; per row
+  // of M its static columns as bits, and the static diagonal entries
+  uint32_t m_static[NV];
+  float m_value[NV][NV];
+  uint32_t mh_static;
+  float mh_value[NV];
 };
 
 // Two copies of one block.  c_k1 in __constant__ memory serves reads at
@@ -221,7 +234,7 @@ HD void fk_body(int b, const float* q, float (*xpos)[3], float (*xquat)[4]) {
       qrot(quat, jp, r);
       for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + r[k];
       float s, c;
-      sincosf(theta * 0.5f, &s, &c);
+      sincos_k1(theta * 0.5f, &s, &c);
       float aa[4] = {c, ax[0] * s, ax[1] * s, ax[2] * s};
       float nq[4];
       qmul(quat, aa, nq);

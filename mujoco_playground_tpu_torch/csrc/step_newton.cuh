@@ -4,10 +4,12 @@
 // Dense counterpart of ops/newton.py newton_body: fixed-iteration Newton on
 // MuJoCo's soft-constraint primal (pyramidal friction cones), an exact
 // Newton line search on the piecewise-quadratic restriction, and the
-// leaves-first Cholesky of step_model.cuh.  Contact slots that are not in
-// contact (dist >= 0) carry zero force, zero Hessian weight and zero cost,
-// so they are dropped while the rows are assembled: only the active rows
-// enter the iterations.
+// leaves-first Cholesky of step_model.cuh.  Every sum runs in the twin's
+// order, so a row that sits on its kink (a stiff contact's pyramid edge, a
+// friction row's bound) is classified as the twin classifies it.  Contact
+// slots that are not in contact (dist >= 0) carry zero force, zero Hessian
+// weight and zero cost, so they are dropped while the rows are assembled:
+// only the active rows enter the iterations.
 #pragma once
 
 #include "step_model.cuh"
@@ -25,8 +27,21 @@ struct CRow {
   float J[3][NBDOF];
   float aref4[4];
   float rinv, mu;
-  uint32_t dofs;  // the dofs that move its body, as bits
+  uint32_t dofs;  // the dofs that move its body, as bits, and ROW_RUN
 };
+
+// Set in a row's dofs where it opens a run (K1Const slot_run): the sums
+// over the contact rows (the Hessian's entries, J^T f, the line search's
+// slopes) add each run's rows into a partial that joins the total when the
+// run ends, as the twin adds each run's stack row after row (ops/newton.py
+// rowsum), so the two give the same bits.
+#define ROW_RUN (1u << 31)
+static_assert(NV < 31, "ROW_RUN shares the bits of CRow::dofs");
+// the line search adds each run's rows on a lane of its own, and keeps the
+// run's partial in cw[run][2..3]: at most NRUN runs (the slot layout's
+// runs of one body: a wheel's plane slots, its box slots, a hull's)
+#define NRUN (2 * NWHEEL + NHULL)
+static_assert(NRUN <= K1_G && NRUN <= NSLOT, "a run a lane and a cw row");
 
 template <bool DR>
 HD void joint_row(int r, const float* q, const float* vel, JRow& o,
@@ -125,7 +140,7 @@ HD float jrow_apply(int r, const JRow& o, const float* a) {
 HD void crow_apply(const CRow& o, const float* a, float* x4) {
   float an = 0.0f, at1 = 0.0f, at2 = 0.0f;
   int c = 0;
-  for (uint32_t m = o.dofs; m; m &= m - 1u, ++c) {
+  for (uint32_t m = o.dofs & ~ROW_RUN; m; m &= m - 1u, ++c) {
     int v = lowest_bit(m);
     an = an + o.J[0][c] * a[v];
     at1 = at1 + o.J[1][c] * a[v];
@@ -229,7 +244,9 @@ struct NewtonWs {                // 4,064 B
 // pick).  Per iteration: the rows' values, forces and weights (one item per
 // row); the Hessian's upper entries and J^T f per dof (one item each); the
 // group's Cholesky; the search direction's row values; the line search,
-// whose sums over rows add per-lane partials by group_sum.
+// whose sums run in the twin's order (the joint rows one by one, then each
+// run's partial, the partials on a lane each), so the iterate is the
+// twin's.
 template <bool WS_COMPARE>
 HD void group_newton(const Grp& g, const float (*M)[NV], const float* a_s,
                      const float* a0, const JRow* jr, const CRow* cr, int nc,
@@ -240,6 +257,26 @@ HD void group_newton(const Grp& g, const float (*M)[NV], const float* a_s,
     bool use_ws = !WS_COMPARE || primal_cost(M, a_s, jr, cr, nc, a0, true) <
                                      primal_cost(M, a_s, jr, cr, nc, a_s, false);
     FOR_ITEMS(v, lane, NV) a[v] = use_ws ? a0[v] : a_s[v];
+  });
+  // the contact rows' runs (ROW_RUN): lane k keeps run k's first row and
+  // its count, every lane the number of runs
+  struct {
+    PerLane<int> lo, n;
+    int count;
+  } runs;
+  runs.count = 0;
+  lanes(g, [&](int lane) {
+    int k = -1, lo = 0, n = 0;
+    for (int i = 0; i < nc; ++i) {
+      if (cr[i].dofs & ROW_RUN) ++k;
+      if (k == lane) {
+        lo = n == 0 ? i : lo;
+        ++n;
+      }
+    }
+    runs.lo.at(lane) = lo;
+    runs.n.at(lane) = n;
+    runs.count = k + 1;
   });
   for (int it = 0; it < C.iterations; ++it) {
     // the rows at a: values, forces and Hessian weights
@@ -311,8 +348,13 @@ HD void group_newton(const Grp& g, const float (*M)[NV], const float* a_s,
               }
             }
           }
+          float run = 0.0f;  // the current run's rows
           for (int i = 0; i < nc; ++i) {
             const CRow& o = cr[i];
+            if (o.dofs & ROW_RUN) {
+              h = h + run;
+              run = 0.0f;
+            }
             if (!moves(o.dofs, v) || !moves(o.dofs, w)) continue;
             int cv = dof_col(o.dofs, v), cw_ = dof_col(o.dofs, w);
             float jn = o.J[0][cw_], jt1 = o.J[1][cw_], jt2 = o.J[2][cw_];
@@ -321,8 +363,9 @@ HD void group_newton(const Grp& g, const float (*M)[NV], const float* a_s,
             float u1 = cw[3] * jn + cw[4] * jt1 + cw[5] * jt2;
             float u2 = cw[4] * jn + cw[6] * jt1;
             float u3 = cw[5] * jn + cw[7] * jt2;
-            h = h + (o.J[0][cv] * u1 + o.J[1][cv] * u2 + o.J[2][cv] * u3);
+            run = run + (o.J[0][cv] * u1 + o.J[1][cv] * u2 + o.J[2][cv] * u3);
           }
+          h = h + run;
           if (v == w) h = h + 1e-9f;
           int pv = pinv[v], pw = pinv[w];
           s.ch.A[pv > pw ? pv : pw][pv > pw ? pw : pv] = h;
@@ -337,13 +380,19 @@ HD void group_newton(const Grp& g, const float (*M)[NV], const float* a_s,
             if (C.jr_kind[r] == ROW_EQ && C.jr_dof2[r] == v)
               jtf = jtf + jr[r].g2 * f;
           }
+          float run = 0.0f;
           for (int i = 0; i < nc; ++i) {
+            if (cr[i].dofs & ROW_RUN) {
+              jtf = jtf + run;
+              run = 0.0f;
+            }
             if (!moves(cr[i].dofs, v)) continue;
             const float* cw = s.cw[i];
             const float(*J)[NBDOF] = cr[i].J;
             int c = dof_col(cr[i].dofs, v);
-            jtf = jtf + (J[0][c] * cw[0] + J[1][c] * cw[1] + J[2][c] * cw[2]);
+            run = run + (J[0][c] * cw[0] + J[1][c] * cw[1] + J[2][c] * cw[2]);
           }
+          jtf = jtf + run;
           float md = 0.0f;
           for (int w = 0; w < NV; ++w) md = md + M[v][w] * s.diff[w];
           s.mdiff[v] = md;
@@ -375,33 +424,55 @@ HD void group_newton(const Grp& g, const float (*M)[NV], const float* a_s,
     }
     float alpha = 1.0f;
     for (int ls = 0; ls < C.ls_iterations; ++ls) {
-      PerLane<float> pd, pdd;
-      lanes(g, [&](int lane) {
-        float sd = 0.0f, sdd = 0.0f;
+      // each row's slope and curvature terms at alpha (the joint rows' in
+      // jf and jw, the contact rows' in cw[i][0..1]: free since the
+      // Hessian), then lane k adds run k's rows in order into cw[k][2..3]
+      stage(g, [&](int lane) {
         FOR_ITEMS(item, lane, NJROW + nc) {
           if (item < NJROW) {
             float jd = s.jdj[item], f, q;
             joint_force(item, jr[item], s.xj[item] + alpha * jd, &f, &q);
-            sd = sd + jd * f;
-            sdd = sdd + q * jr[item].rinv * (jd * jd);
+            s.jf[item] = jd * f;
+            s.jw[item] = q * jr[item].rinv * (jd * jd);
           } else {
             int i = item - NJROW;
-            float rinv = cr[i].rinv;
+            float rinv = cr[i].rinv, sd = 0.0f, sdd = 0.0f;
             for (int k = 0; k < 4; ++k) {
               float jd = s.jd4[i][k];
               float x = s.x4[i][k] + alpha * jd;
               float f = fmaxf(-x * rinv, 0.0f);
               float q = x < 0.0f ? 1.0f : 0.0f;
-              sd = sd + jd * f;
-              sdd = sdd + q * rinv * jd * jd;
+              float td = jd * f, tdd = q * rinv * jd * jd;
+              sd = k == 0 ? td : sd + td;
+              sdd = k == 0 ? tdd : sdd + tdd;
             }
+            s.cw[i][0] = sd;
+            s.cw[i][1] = sdd;
           }
         }
-        pd.at(lane) = sd;
-        pdd.at(lane) = sdd;
       });
-      float dphi = (dMas + alpha * dMd) - group_sum(g, pd);
-      float ddphi = dMd + group_sum(g, pdd);
+      stage(g, [&](int lane) {
+        if (lane >= runs.count) return;
+        int lo = runs.lo.at(lane), n = runs.n.at(lane);
+        float rd = s.cw[lo][0], rdd = s.cw[lo][1];
+        for (int i = lo + 1; i < lo + n; ++i) {
+          rd = rd + s.cw[i][0];
+          rdd = rdd + s.cw[i][1];
+        }
+        s.cw[lane][2] = rd;
+        s.cw[lane][3] = rdd;
+      });
+      // the sums in the twin's order: the joint rows, then the runs
+      float dphi = dMas + alpha * dMd, ddphi = dMd;
+      UNROLL for (int r = 0; r < NJROW; ++r) {
+        dphi = dphi - s.jf[r];
+        ddphi = ddphi + s.jw[r];
+      }
+      UNROLL for (int k = 0; k < NRUN; ++k) {
+        if (k >= runs.count) break;
+        dphi = dphi - s.cw[k][2];
+        ddphi = ddphi + s.cw[k][3];
+      }
       alpha = fminf(fmaxf(alpha - dphi / fmaxf(ddphi, 1e-12f), 0.0f), 2.0f);
     }
     stage(g, [&](int lane) {

@@ -8,6 +8,42 @@ import torch
 from mujoco_playground_tpu_torch.ops.newton import sadd, smul, ssub
 
 
+# sincos's float32 constants: 2/pi, pi/2 in three parts, and cephes'
+# minimax coefficients of sin and cos on [-pi/4, pi/4]
+_TWO_OVER_PI = 6.366197467e-01
+_PIO2 = (1.570312500e+00, 4.837512970e-04, 7.549790126e-08)
+_SIN = (-1.951529557e-04, 8.332161233e-03, -1.666665524e-01)
+_COS = (2.443315680e-05, -1.388731645e-03, 4.166664556e-02)
+
+
+def sincos(x):
+    """(sin x, cos x) of a float32 lane by the float32 operations of
+    ``csrc/lanes.cuh`` sincos_k1, in the same order, so the twin and kernel
+    K1 get the same bits on the CPU and on the card: x - k pi/2 with k the
+    nearest quadrant, cephes' polynomials, the quadrant's signs."""
+    k = torch.floor(x * _TWO_OVER_PI + 0.5)
+    r = ((x - k * _PIO2[0]) - k * _PIO2[1]) - k * _PIO2[2]
+    z = r * r
+    ps = ((_SIN[0] * z + _SIN[1]) * z + _SIN[2]) * z * r + r
+    pc = ((_COS[0] * z + _COS[1]) * z + _COS[2]) * z * z - 0.5 * z + 1.0
+    q = k - 4.0 * torch.floor(k * 0.25)
+    s = torch.where(q == 0, ps, torch.where(q == 1, pc, torch.where(
+        q == 2, -ps, -pc)))
+    c = torch.where(q == 0, pc, torch.where(q == 1, -ps, torch.where(
+        q == 2, -pc, ps)))
+    return s, c
+
+
+def sqrt(x):
+    """The correctly rounded square root of a lane, as IEEE's sqrtf in the
+    kernels: PyTorch's vectorized float32 sqrt on some CPUs is not (AVX-512
+    builds miss in the last bit on ~0.7% of inputs), so float32 lanes take
+    it in float64, rounded once, which is exact for a float32 operand."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def lane(x, B, dtype, device):
     """Static float or (B,) tensor -> (B,) tensor."""
     if isinstance(x, torch.Tensor):

@@ -7,7 +7,9 @@ value per env, or Python floats for values that are static for the model.
 The scalar helpers drop exact static zeros while the program is built, so
 the tree sparsity of the robot (a wheel's Jacobian touches ~8 of 12 dofs,
 a joint row 1-2) costs no arithmetic.  The CUDA step kernel
-(``csrc/step_kernel.cu``) computes the same function with dense loops.
+(``csrc/step_kernel.cu``) computes the same function with dense loops, in
+the same order, to the same bits (sums over a group's contact rows run row
+after row: ``rowsum``).
 
 Kernel K3 (``newton_solve``, ``csrc/newton_kernel.cu``) is the standalone
 solve of the staged step (``newton_solve_pallas``): the whole system
@@ -111,6 +113,18 @@ def cholesky_solve_lanes(H, g, n, order=None):
     return xout
 
 
+def rowsum(t, dim=0):
+    """The sum of a stack over ``dim``, one row after another in order:
+    the same bits on the CPU and the card (``Tensor.sum`` blocks and
+    vectorizes its rows differently on each), and the order in which
+    kernel K1 adds a run's contact rows."""
+    rows = t.unbind(dim)
+    acc = rows[0]
+    for r in rows[1:]:
+        acc = acc + r
+    return acc
+
+
 def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
                 order=None, a0=None, ws_compare=True):
     """Fixed-iteration Newton on MuJoCo's soft-constraint primal with an
@@ -120,9 +134,11 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
       a_s      nv lanes: the smooth acceleration (the objective's anchor).
       jrows    joint rows: dict(G=nv lanes/floats, aref, Rinv, floss,
                active, is_eq, is_fric).
-      cgroups  contact rows grouped by Jacobian sparsity pattern:
+      cgroups  contact rows in groups over the dofs that move them:
                dict(dofs, Jn/Jt1/Jt2 = per-dof (ncg, B) stacks, aref4 = 4
                (ncg, B), Rinv/active/mu = (ncg, B)); pyramidal friction.
+               Sums over a group's rows run row after row (rowsum), and
+               each group's sum joins the total in group order.
       a0       warm start.  ``ws_compare`` picks the cheaper of a0 and a_s
                by primal cost (MuJoCo's mj_warmstart); False starts from a0
                unconditionally (the fused step's choice).
@@ -180,10 +196,10 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
             fn = fc[0] + fc[1] + fc[2] + fc[3]
             ft1 = g["mu"] * (fc[0] - fc[1])
             ft2 = g["mu"] * (fc[2] - fc[3])
+            Jn, Jt1, Jt2 = stacks[id(g)]
+            per_dof = rowsum(Jn * fn + Jt1 * ft1 + Jt2 * ft2, 1)
             for i, v in enumerate(g["dofs"]):
-                out[v] = sadd(out[v],
-                              (g["Jn"][i] * fn + g["Jt1"][i] * ft1
-                               + g["Jt2"][i] * ft2).sum(0))
+                out[v] = sadd(out[v], per_dof[i])
         return out
 
     def Mtv(dvec):
@@ -191,6 +207,9 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
                 for v in range(nv)]
 
     a_s_vec = [a_s[v] for v in range(nv)]
+    # each group's Jacobians as (dofs, ncg, B) stacks
+    stacks = {id(g): tuple(torch.stack(g[k]) for k in ("Jn", "Jt1", "Jt2"))
+              for g in cgroups}
 
     def primal_cost(vec, with_m_term):
         """Phi(vec); the smooth quadratic is exactly zero at vec == a_s."""
@@ -211,9 +230,10 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
         for g, x4g in zip(cgroups, x4):
             for k in range(4):
                 xk = x4g[k]
-                c = c + (torch.where(xk < 0, 0.5 * xk * xk * g["Rinv"],
-                                     torch.zeros_like(xk))
-                         * g["active"]).sum(0)
+                c = c + rowsum(torch.where(xk < 0,
+                                           0.5 * xk * xk * g["Rinv"],
+                                           torch.zeros_like(xk))
+                               * g["active"])
         if with_m_term:
             diff = [ssub(vec[v], a_s_vec[v]) for v in range(nv)]
             Mdiff = Mtv(diff)
@@ -262,20 +282,19 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
             W02 = mu * (w4[2] - w4[3])
             W11 = mu * mu * w01
             W22 = mu * mu * w23
-            dofs = g["dofs"]
-            U1 = [W00 * g["Jn"][i] + W01 * g["Jt1"][i] + W02 * g["Jt2"][i]
-                  for i in range(len(dofs))]
-            U2 = [W01 * g["Jn"][i] + W11 * g["Jt1"][i]
-                  for i in range(len(dofs))]
-            U3 = [W02 * g["Jn"][i] + W22 * g["Jt2"][i]
-                  for i in range(len(dofs))]
-            for i, v in enumerate(dofs):
-                for jj, w in enumerate(dofs):
-                    if w < v:
-                        continue
-                    H[v][w] = sadd(H[v][w], (
-                        g["Jn"][i] * U1[jj] + g["Jt1"][i] * U2[jj]
-                        + g["Jt2"][i] * U3[jj]).sum(0))
+            Jn, Jt1, Jt2 = stacks[id(g)]
+            U1 = W00 * Jn + W01 * Jt1 + W02 * Jt2
+            U2 = W01 * Jn + W11 * Jt1
+            U3 = W02 * Jn + W22 * Jt2
+            # every (dof, dof) entry of the group at once: (nd, nd, ncg, B)
+            HJ = Jn[:, None] * U1[None]
+            HJ += Jt1[:, None] * U2[None]
+            HJ += Jt2[:, None] * U3[None]
+            HJ = rowsum(HJ, 2)
+            for i, v in enumerate(g["dofs"]):
+                for jj, w in enumerate(g["dofs"]):
+                    if w >= v:
+                        H[v][w] = sadd(H[v][w], HJ[i, jj])
         for v in range(nv):
             H[v][v] = H[v][v] + 1e-9
             for w in range(v + 1, nv):
@@ -310,8 +329,8 @@ def newton_body(nv, iterations, ls_iterations, M, a_s, jrows, cgroups,
                     tdd = q4_a[k] * g["Rinv"] * jdc[k] * jdc[k]
                     acc_d = td if acc_d is None else acc_d + td
                     acc_dd = tdd if acc_dd is None else acc_dd + tdd
-                dphi = dphi - acc_d.sum(0)
-                ddphi = ddphi + acc_dd.sum(0)
+                dphi = dphi - rowsum(acc_d)
+                ddphi = ddphi + rowsum(acc_dd)
             alpha = torch.clamp(alpha - dphi / torch.clamp_min(ddphi, 1e-12),
                                 0.0, 2.0)
         avec = [avec[v] + alpha * delta[v] for v in range(nv)]

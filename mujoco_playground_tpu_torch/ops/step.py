@@ -17,14 +17,22 @@ tensor, one column per env.
 
 ``step_plain`` is the plain twin: the lane program of the JAX kernel on
 ``(B,)`` tensors, with the model's static zeros pruned while the program is
-built (``ops/newton.py``).  ``step_fused`` dispatches on the device: CPU
-tensors take the twin, CUDA tensors launch ``csrc/step_kernel.cu`` (K1e:
+built (``ops/newton.py``).  The kernel computes every value from the same
+IEEE float32 operations in the same order (sin and cos by ``sincos``, a
+correctly rounded ``sqrt``, true divisions by constants, the static
+entries of M as the twin folds them, the contact rows summed run by run),
+so its physics outputs are the twin's bits on the CPU and on the card, and
+every discrete decision (contact activity, the rim point of a wheel
+against a box, a pyramid edge or friction row in the solve) is the
+twin's.  ``step_fused`` dispatches on the device: CPU tensors take the
+twin, CUDA tensors launch ``csrc/step_kernel.cu`` (K1e:
 ``csrc/step_kernel_dr.cu``) or raise.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import itertools
 import math
 
 import numpy as np
@@ -32,8 +40,8 @@ import torch
 
 from mujoco_playground_tpu_torch.ops import build
 from mujoco_playground_tpu_torch.ops.lanes import (cross3, dot3, lane, qmat,
-                                                   qmul, qrot, v3add, v3scale,
-                                                   v3sub)
+                                                   qmul, qrot, sincos, sqrt,
+                                                   v3add, v3scale, v3sub)
 from mujoco_playground_tpu_torch.ops.lidar import (LidarConst, check_rows,
                                                    fill, lidar_constants,
                                                    lidar_rows, lidar_statics)
@@ -231,24 +239,22 @@ class _Lanes:
 
 def qaxisangle(axis, theta):
     """Static unit axis + lane angle -> quat."""
-    half = theta * 0.5
-    s = torch.sin(half)
-    return [torch.cos(half), smul(axis[0], s), smul(axis[1], s),
-            smul(axis[2], s)]
+    s, c = sincos(theta * 0.5)
+    return [c, smul(axis[0], s), smul(axis[1], s), smul(axis[2], s)]
 
 
 def qintegrate(q, omega, dt):
     """Integrate a quaternion by a local angular velocity, normalized."""
     w2 = sadd(smul(omega[0], omega[0]), smul(omega[1], omega[1]),
               smul(omega[2], omega[2]))
-    angle = torch.sqrt(w2)
+    angle = sqrt(w2)
     safe = torch.where(angle > 1e-14, angle, 1.0)
-    half = angle * dt * 0.5
-    s = torch.where(angle > 1e-14, torch.sin(half) / safe, 0.0)
-    dq = [torch.cos(half), smul(omega[0], s), smul(omega[1], s),
+    sh, ch = sincos(angle * dt * 0.5)
+    s = torch.where(angle > 1e-14, sh / safe, 0.0)
+    dq = [ch, smul(omega[0], s), smul(omega[1], s),
           smul(omega[2], s)]
     out = qmul(q, dq)
-    norm = torch.sqrt(sadd(*[smul(out[k], out[k]) for k in range(4)]))
+    norm = sqrt(sadd(*[smul(out[k], out[k]) for k in range(4)]))
     return [out[k] / norm for k in range(4)]
 
 
@@ -274,6 +280,13 @@ def _pow(x, p):
     return x ** p
 
 
+def divide(x, c):
+    """Lane x over static c by a true float32 division on either device,
+    as the kernels divide: PyTorch's CUDA kernels multiply by the rounded
+    reciprocal of a Python-number divisor, which can miss by an ulp."""
+    return x / torch.full_like(x, c)
+
+
 def impedance(solimp, r):
     """Impedance d(r) for static ``solimp``; ``r`` a lane or a float."""
     d0, dmm, width, mid, a, b, power = imp_params(solimp)
@@ -281,7 +294,7 @@ def impedance(solimp, r):
         x = min(max(abs(r) / width, 0.0), 1.0)
         y = a * _pow(x, power) if x <= mid else 1.0 - b * _pow(1.0 - x, power)
         return d0 + y * dmm
-    x = torch.clamp(torch.abs(r) / width, 0.0, 1.0)
+    x = torch.clamp(divide(torch.abs(r), width), 0.0, 1.0)
     y = torch.where(x <= mid, a * _pow(x, power),
                     1.0 - b * _pow(1.0 - x, power))
     return d0 + y * dmm
@@ -299,7 +312,7 @@ def kbi(solref, solimp, pos, vel):
     """(aref, d) for static solref/solimp; pos/vel lanes or static 0."""
     d = impedance(solimp, pos if not _is0(pos) else 0.0)
     b, kden = ref_params(solref, solimp)
-    k = d / kden
+    k = d / kden if isinstance(d, float) else divide(d, kden)
     return ssub(smul(-b, vel), smul(k, pos)), d
 
 
@@ -322,7 +335,7 @@ def fk_lanes(sm: StaticModel, qvec):
             if t == JNT_FREE:
                 pos = [qvec[adr], qvec[adr + 1], qvec[adr + 2]]
                 q = [qvec[adr + 3 + k] for k in range(4)]
-                norm = torch.sqrt(sadd(*[smul(q[k], q[k]) for k in range(4)]))
+                norm = sqrt(sadd(*[smul(q[k], q[k]) for k in range(4)]))
                 quat = [q[k] / norm for k in range(4)]
             elif t == JNT_HINGE:
                 theta = qvec[adr] - sm.f("qpos0", adr)
@@ -482,8 +495,8 @@ def make_frame(n, L):
     cond = torch.abs(L(n[0])) < 0.5
     a = [torch.where(cond, 1.0, 0.0), torch.where(cond, 0.0, 1.0), 0.0]
     t1 = cross3(n, a)
-    t1n = torch.clamp_min(torch.sqrt(sadd(*[smul(t1[k], t1[k])
-                                            for k in range(3)])), 1e-12)
+    t1n = torch.clamp_min(sqrt(sadd(*[smul(t1[k], t1[k])
+                                      for k in range(3)])), 1e-12)
     t1 = [t1[k] / t1n for k in range(3)]
     return [list(n), t1, cross3(n, t1)]
 
@@ -494,8 +507,8 @@ def point_box(p, bp, bs):
     q = [torch.abs(rel[k]) - bs[k] for k in range(3)]
     inside = (q[0] < 0) & (q[1] < 0) & (q[2] < 0)
     qpos_part = [torch.clamp_min(q[k], 0.0) for k in range(3)]
-    dist_out = torch.sqrt(sadd(*[smul(qpos_part[k], qpos_part[k])
-                                 for k in range(3)]))
+    dist_out = sqrt(sadd(*[smul(qpos_part[k], qpos_part[k])
+                           for k in range(3)]))
     is0 = (q[0] >= q[1]) & (q[0] >= q[2])
     is1 = (~is0) & (q[1] >= q[2])
     is2 = (~is0) & (~is1)
@@ -503,7 +516,7 @@ def point_box(p, bp, bs):
     qmax = torch.where(is0, q[0], torch.where(is1, q[1], q[2]))
     n_in = [torch.where(axsel[k], torch.sign(rel[k]), 0.0) for k in range(3)]
     delta = [rel[k] - torch.clamp(rel[k], -bs[k], bs[k]) for k in range(3)]
-    dn = torch.sqrt(sadd(*[smul(delta[k], delta[k]) for k in range(3)]))
+    dn = sqrt(sadd(*[smul(delta[k], delta[k]) for k in range(3)]))
     dsafe = torch.clamp_min(dn, 1e-9)
     n_out = [delta[k] / dsafe for k in range(3)]
     n = [torch.where(inside, n_in[k], n_out[k]) for k in range(3)]
@@ -520,11 +533,11 @@ def cylinder_box(c, a, r, h, bp, bs, L):
           ssub(0.0, ax[0] * ax[2])]
     fy = [ssub(0.0, ax[1] * ax[0]), ssub(1.0, ax[1] * ax[1]),
           ssub(0.0, ax[1] * ax[2])]
-    fxn = torch.sqrt(sadd(*[smul(fx[k], fx[k]) for k in range(3)]))
+    fxn = sqrt(sadd(*[smul(fx[k], fx[k]) for k in range(3)]))
     use_x = fxn > 0.1
     fall = [torch.where(use_x, fx[k], fy[k]) for k in range(3)]
-    fn = torch.clamp_min(torch.sqrt(sadd(*[smul(fall[k], fall[k])
-                                           for k in range(3)])), 1e-12)
+    fn = torch.clamp_min(sqrt(sadd(*[smul(fall[k], fall[k])
+                                     for k in range(3)])), 1e-12)
     fall = [fall[k] / fn for k in range(3)]
     out = []
     for e in (-1.0, 1.0):
@@ -536,8 +549,8 @@ def cylinder_box(c, a, r, h, bp, bs, L):
             d = v3sub(cp, ce)
             da = sadd(*[smul(d[k], ax[k]) for k in range(3)])
             dperp = [ssub(d[k], smul(da, ax[k])) for k in range(3)]
-            dn = torch.sqrt(L(sadd(*[smul(dperp[k], dperp[k])
-                                     for k in range(3)])))
+            dn = sqrt(L(sadd(*[smul(dperp[k], dperp[k])
+                               for k in range(3)])))
             dsafe = torch.clamp_min(dn, 1e-9)
             u = [torch.where(dn > 1e-9, dperp[k] / dsafe, fall[k])
                  for k in range(3)]
@@ -648,7 +661,7 @@ def collide_lanes(sm: StaticModel, xpos, xquat, L, dr):
         az = L(a[2])
         proj = [ssub(0.0, smul(az, a[0])), ssub(0.0, smul(az, a[1])),
                 ssub(1.0, smul(az, a[2]))]
-        pn = torch.sqrt(L(sadd(*[smul(proj[k], proj[k]) for k in range(3)])))
+        pn = sqrt(L(sadd(*[smul(proj[k], proj[k]) for k in range(3)])))
         pns = torch.clamp_min(pn, 1e-9)
         # degenerate fallback -x: deepest candidate at +x (MuJoCo's pick)
         raddir = [torch.where(pn > 1e-9, proj[0] / pns, -1.0),
@@ -788,7 +801,7 @@ def contact_rows_lanes(sm: StaticModel, slots, statics, S, anchor, vvec):
         dist = s["dist"]
         d_imp = impedance(solimp, dist)
         bcoef, kden = ref_params(solref, solimp)
-        kcoef = d_imp / kden
+        kcoef = divide(d_imp, kden)
         diag = smax(iw * 2.0 * mu_ ** 2 * (1.0 + mu_ ** 2), 1e-12)
         vn = sadd(*[smul(Jn[v], vvec[v]) for v in range(nv)])
         vt1 = sadd(*[smul(Jt1[v], vvec[v]) for v in range(nv)])
@@ -836,8 +849,8 @@ def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False,
     # collision + constraint rows
     slots = collide_lanes(sm, xpos, xquat, L, dr)
     jrows = joint_rows_lanes(sm, qvec, vvec, dr)
-    crows = contact_rows_lanes(sm, slots, slot_statics(sm, dr), S, anchor,
-                               vvec)
+    statics = slot_statics(sm, dr)
+    crows = contact_rows_lanes(sm, slots, statics, S, anchor, vvec)
 
     njrows = []
     for r in jrows:
@@ -849,15 +862,15 @@ def physics_plain(model, qpos, qvel, ctrl, warmstart, ws_compare=False,
                            floss=r["floss"], active=r["active"],
                            is_eq=r["kind"] == EQ,
                            is_fric=r["kind"] == FRICTION))
-    # contact rows grouped by static Jacobian sparsity pattern
-    bypat = {}
-    for c in crows:
-        key = tuple(v for v in range(nv)
-                    if not (_is0(c["Jn"][v]) and _is0(c["Jt1"][v])
-                            and _is0(c["Jt2"][v])))
-        bypat.setdefault(key, []).append(c)
+    # contact rows in runs of consecutive slots of one body, over the dofs
+    # that move it: kernel K1 sums each run's rows in order into a partial
+    # (csrc/step_newton.cuh ROW_RUN), as newton_body sums a group's stack
     cgroups = []
-    for dofs, rows in bypat.items():
+    for body, run in itertools.groupby(zip(statics, crows),
+                                       key=lambda x: x[0][0]):
+        rows = [c for _, c in run]
+        dofs = tuple(v for v in range(nv) if sm.ancestor_mask[body, v])
+
         def stk(vals):
             return torch.stack([L(x) for x in vals])
         cgroups.append(dict(
@@ -951,7 +964,7 @@ def env_plain(model, xpos, xquat, env_in, env_statics, fresh_statics=None,
                           1.0 - 2.0 * (qy * qy + qz * qz))
     gx = goal_x - px
     gy = goal_y - py
-    gd = torch.sqrt(gx * gx + gy * gy)
+    gd = sqrt(gx * gx + gy * gy)
     ga = torch.atan2(gy, gx) - heading
     # wrap to [-pi, pi)
     ga = ga - 2.0 * math.pi * torch.floor((ga + math.pi) / (2.0 * math.pi))
@@ -1074,6 +1087,13 @@ class K1Const(ctypes.Structure):
         ("off_v", _I * (NV * (NV - 1) // 2)),
         ("off_w", _I * (NV * (NV - 1) // 2)),
         ("dof_jrows", _I * DOF_JROWS * NV),
+        # per slot its run of consecutive slots of one body (-1: a slot the
+        # scene cannot fill)
+        ("slot_run", _I * NSLOT),
+        # the state-independent entries of M and of M + h D's diagonal
+        # (static_mass_entries)
+        ("m_static", ctypes.c_uint32 * NV), ("m_value", _F * NV * NV),
+        ("mh_static", ctypes.c_uint32), ("mh_value", _F * NV),
     ]
 
 
@@ -1082,6 +1102,24 @@ def _imp(solref, solimp) -> Imp:
     bref, kden = ref_params(solref, solimp)
     ip = int(power) if float(power) == int(power) and 0 < power <= 4 else 0
     return Imp(d0, dmm, width, mid, a, b, power, ip, bref, kden)
+
+
+def static_mass_entries(sm: StaticModel):
+    """The entries of M (nv x nv) and of the diagonal of M + h D (nv)
+    that the twin computes as Python floats while it builds its program
+    (sums of the model's masses and armatures, independent of the state),
+    each None where it is a lane; K1 takes them from its constant block,
+    so it rounds them as the twin does."""
+    L = _Lanes(1, torch.float32, "cpu")
+    xpos, xquat = fk_lanes(sm, [L(float(x)) for x in sm.qpos0])
+    M = crba_bias_lanes(sm, xpos, xquat, [L(0.0)] * sm.nv, DRView(sm))[0]
+
+    def static(x):
+        return None if isinstance(x, torch.Tensor) else float(x)
+    m = [[static(M[v][w]) for w in range(sm.nv)] for v in range(sm.nv)]
+    mh = [static(sadd(M[v][v], smul(sm.timestep, sm.f("dof_damping", v))))
+          for v in range(sm.nv)]
+    return m, mh
 
 
 def _check_dims(sm: StaticModel):
@@ -1169,6 +1207,11 @@ def step_constants(model, fresh_statics=None) -> K1Const:
     statics = slot_statics(sm)
     layout = _slot_layout(sm)
     fill(c.slot_wheel, [-1] * NSLOT)
+    fill(c.slot_run, [-1] * NSLOT)
+    for run, (_, slots) in enumerate(itertools.groupby(
+            zip(layout, statics), key=lambda x: x[1][0])):
+        for s, _ in slots:
+            c.slot_run[s] = run
     for s, st_ in zip(layout, statics):
         body, mu_, solref, solimp, iw, wheel = st_
         c.slot_body[s] = body
@@ -1191,6 +1234,13 @@ def step_constants(model, fresh_statics=None) -> K1Const:
         raise ValueError(f"a body has {most} dofs; the step kernel holds at "
                          f"most {NBDOF}")
     off = [(v, w) for v in range(sm.nv) for w in range(v + 1, sm.nv)]
+    m, mh = static_mass_entries(sm)
+    for v in range(sm.nv):
+        c.m_static[v] = sum(1 << w for w in range(sm.nv)
+                            if m[v][w] is not None)
+        fill(c.m_value[v], [x or 0.0 for x in m[v]])
+    c.mh_static = sum(1 << v for v in range(sm.nv) if mh[v] is not None)
+    fill(c.mh_value, [x or 0.0 for x in mh])
     fill(c.off_v, [v for v, _ in off])
     fill(c.off_w, [w for _, w in off])
     for v in range(sm.nv):

@@ -280,3 +280,78 @@ def test_set_aside_counts_both_kinds_toward_max_flips():
     aside = chip_smoke.set_aside("t", ratio, None, [torch.zeros(1, 17)],
                                  failures)
     assert not bool(aside.any()) and failures
+
+
+@pytest.mark.parametrize("moved64,k64,t32_64,admitted", [
+    (0.0, 0.5, 20.0, True),     # the float32 twin off the float64 one
+    (2.0, 30.0, 0.1, False),    # ill-conditioned: refused for K1 and K1e
+], ids=["yardstick-off", "ill"])
+def test_set_aside_holds_k1_strictly(moved64, k64, t32_64, admitted, capsys):
+    """With ill_ok False (K1's and K1e's checks) an env the one-ulp rule
+    shows ill-conditioned is a failure; each verdict's count is printed."""
+    ratio = torch.tensor([0.2, 3.0, 0.1], dtype=torch.float64)
+
+    def witness(ids, got, draws=chip_smoke.ULP_DRAWS):
+        one = torch.ones(1, dtype=torch.float64)
+        moves = one if draws else 0 * one
+        return (moved64 * moves, 0 * one, k64 * one, k64 * one,
+                t32_64 * one)
+
+    failures = []
+    aside = chip_smoke.set_aside("t", ratio, witness, [torch.zeros(2, 3)],
+                                 failures, ill_ok=False)
+    assert aside.tolist() == [False, admitted, False]
+    assert bool(failures) != admitted
+    out = capsys.readouterr().out
+    counts = ("1 set aside with the float32 twin off the float64 answer, 0 "
+              "ill-conditioned" if admitted else
+              "0 set aside with the float32 twin off the float64 answer, 1 "
+              "ill-conditioned (not admitted)")
+    assert counts in out
+
+
+def test_k1_misses_loader_groups_by_flag_set():
+    """load_k1_misses reads what scripts/torch_k1_probe.py --save wrote,
+    and k1_miss_groups gives step_plain's arguments per flag set (K1e on
+    the model's own parameters beside each K1 group)."""
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    env = make_ackermann_env("maze", "umaze", solver_iterations=4,
+                             ls_iterations=3, device="cpu", seed=0)
+    z = chip_smoke.load_k1_misses(chip_smoke.K1_MISSES, "cpu")
+    n = z["qpos"].shape[1]
+    assert z["qpos"].shape == (env.model.nq, n) and n >= 18
+    assert z["variant"].shape == (n, 4) and z["env_in"].shape == (7, n)
+    groups = list(chip_smoke.k1_miss_groups(env, z, with_k1e=True))
+    own = [j for key, _, _, idx in groups for j in idx
+           if key == tuple(bool(x) for x in z["variant"][j])]
+    assert sorted(own) == list(range(n))
+    for key, args, dr, idx in groups:
+        assert args[1].shape == (env.model.nq, len(idx))
+        assert (dr is not None) == key[3]
+        assert (args[5] is not None) == key[0]
+        if key[3]:
+            assert dr.shape[1] == len(idx)
+    base = chip_smoke.base_dr_params(env.model, 3)
+    assert torch.equal(base[:, 0], base[:, 2])
+
+
+def test_k1_misses_check_is_strict_on_the_cpu():
+    """The captured-env phase passes the twin itself and fails on an output
+    moved past the tolerance, with no set-aside."""
+    from mujoco_playground_tpu_torch.envs import make_ackermann_env
+    from mujoco_playground_tpu_torch.ops import step as k1
+    env = make_ackermann_env("maze", "umaze", solver_iterations=4,
+                             ls_iterations=3, device="cpu", seed=0)
+    failures = []
+    chip_smoke.k1_misses_check(
+        env, "cpu", failures,
+        run=lambda a, dr: k1.step_plain(*a, dr_params=dr))
+    assert failures == []
+
+    def off(a, dr):
+        out = list(k1.step_plain(*a, dr_params=dr))
+        out[0] = out[0].clone()
+        out[0][0, 0] += 1e-3
+        return tuple(out)
+    chip_smoke.k1_misses_check(env, "cpu", failures, run=off)
+    assert failures and all("qpos" in f for f in failures)
