@@ -54,6 +54,7 @@ from mujoco_playground_tpu_torch.spec.robot import ackermann_robot_v2
 from mujoco_playground_tpu_torch.spec.scene import (SceneSpec,
                                                     open_floor_scene,
                                                     pointmaze_scene)
+from mujoco_playground_tpu_torch.utils import profiler
 
 N_BEAMS = 72
 OBS_SIZE = 79
@@ -284,15 +285,17 @@ class AckermannEnv:
         cell ``goal_cell`` (B,).  ``reset_core`` draws them; a caller may
         pass another sampler's (such as the JAX package's evaluation
         draws)."""
-        tpl = self._template
-        B = start_xy.shape[0]
-        physics = _expand(tpl, B) if yaw is None else rotate_spawn(tpl, yaw)
-        physics.qpos[:, 0:2] = start_xy
-        physics.xpos[:, 1:, 0:2] += (start_xy - tpl.qpos[0:2])[:, None, :]
-        physics = physics.replace(
-            time=torch.zeros(B, dtype=self.dtype, device=self.device))
-        return self._core(physics, goal_xy - physics.xpos[:, 1, :2],
-                          goal_cell.to(torch.int32))
+        with profiler.span("envs.maze_core"):
+            tpl = self._template
+            B = start_xy.shape[0]
+            physics = (_expand(tpl, B) if yaw is None
+                       else rotate_spawn(tpl, yaw))
+            physics.qpos[:, 0:2] = start_xy
+            physics.xpos[:, 1:, 0:2] += (start_xy - tpl.qpos[0:2])[:, None, :]
+            physics = physics.replace(
+                time=torch.zeros(B, dtype=self.dtype, device=self.device))
+            return self._core(physics, goal_xy - physics.xpos[:, 1, :2],
+                              goal_cell.to(torch.int32))
 
     def _core(self, physics: State, goal, goal_cell) -> EnvState:
         """A fresh EnvState batch at ``physics`` with ``goal`` in the
@@ -332,8 +335,9 @@ class AckermannEnv:
         dphi/dx, dphi/dy] (None when no field is built)."""
         if self._geo_pack is None:
             return None
-        return geodesic.sample_vec(self._geo_pack, self._geo_origin, GEO_RES,
-                                   goal_cell, xy)
+        with profiler.span("envs.geodesic"):
+            return geodesic.sample_vec(self._geo_pack, self._geo_origin,
+                                       GEO_RES, goal_cell, xy)
 
     def _compass_from(self, grad, heading, goal_vec):
         """(cos, sin) of the geodesic descent direction in the robot frame.
@@ -470,68 +474,78 @@ class AckermannEnv:
         Off the fused step (delayed obs, the staged step), the observation
         comes from ``_observe_batch``: kernel K2, with each env's floor
         height under domain randomization."""
-        cfg = self.config
-        model = self.model if models is None else models
-        actions = torch.clamp(actions.to(self.dtype), -1.0, 1.0)
-        ctrl = bicycle_cmd_vel_to_controls(
-            actions[..., 0] * cfg.max_linear_velocity,
-            actions[..., 1] * cfg.max_angular_velocity)
-        physics = states.physics.replace(ctrl=ctrl)
-        slab = None
-        for i in range(cfg.physics_substeps):
-            if i == cfg.physics_substeps - 1 and not cfg.reference_delayed_obs:
-                cols = [states.odom_ref.position[:, :2], states.goal,
-                        states.prev_goal_distance[:, None]]
+        with profiler.span("envs.step_batch"):
+            cfg = self.config
+            model = self.model if models is None else models
+            actions = torch.clamp(actions.to(self.dtype), -1.0, 1.0)
+            ctrl = bicycle_cmd_vel_to_controls(
+                actions[..., 0] * cfg.max_linear_velocity,
+                actions[..., 1] * cfg.max_angular_velocity)
+            physics = states.physics.replace(ctrl=ctrl)
+            slab = None
+            for i in range(cfg.physics_substeps):
+                if (i == cfg.physics_substeps - 1
+                        and not cfg.reference_delayed_obs):
+                    cols = [states.odom_ref.position[:, :2], states.goal,
+                            states.prev_goal_distance[:, None]]
+                    if _fresh_xy is not None:
+                        cols.append(_fresh_xy)
+                    env_in = torch.cat(cols, dim=-1).to(self.dtype)
+                    physics, slab = engine.step_batch(
+                        model, physics, base_model=base_model,
+                        with_env=self._env_statics(), env_in=env_in,
+                        with_fresh=(self._fresh_statics()
+                                    if _fresh_xy is not None else None))
+                else:
+                    physics = engine.step_batch(model, physics,
+                                                base_model=base_model)
+            with profiler.span("envs.outcome"):
+                if slab is None:
+                    obs_src = (states.physics if cfg.reference_delayed_obs
+                               else physics)
+                    geo_obs = self._geo_eval(states.goal_cell,
+                                             obs_src.xpos[:, 1, :2])
+                    obs, metrics = self._observe_batch(
+                        obs_src, states.odom_ref, states.goal,
+                        geo_vec=geo_obs, models=models,
+                        base_model=base_model)
+                    new = self._outcome(
+                        states, physics, obs, metrics,
+                        self._geo_delta(states.physics, physics,
+                                        states.goal_cell,
+                                        None if cfg.reference_delayed_obs
+                                        else geo_obs))
+                    return (new, None) if _fresh_xy is not None else new
+                ns = self.model.nsite
+                obs = slab[:, :ns + 7]
+                # the compass and the shaping ride outside the kernel, on
+                # one packed sample at the stepped chassis xy
+                geo_new = self._geo_eval(states.goal_cell,
+                                         physics.xpos[:, 1, :2])
+                if cfg.goal_compass:
+                    goal_vec = states.goal - (
+                        physics.xpos[:, 1, :2]
+                        - states.odom_ref.position[:, :2])
+                    obs = torch.cat([obs, self._compass_from(
+                        None if geo_new is None else geo_new[..., 1:3],
+                        slab[:, ns + 2], goal_vec)], dim=-1)
+                reward = slab[:, ns + 7] + self._geo_delta(
+                    states.physics, physics, states.goal_cell, geo_new)
+                terminated = slab[:, ns + 11] > 0.5
+                steps = states.steps + 1
+                truncated = (steps >= cfg.max_episode_steps) & ~terminated
+                goal_distance = slab[:, ns + 8]
+                new = states.replace(
+                    physics=physics, obs=obs, final_obs=obs,
+                    reward=reward, steps=steps, terminated=terminated,
+                    truncated=truncated, done=terminated | truncated,
+                    goal_distance=goal_distance,
+                    collision=slab[:, ns + 10] > 0.5,
+                    min_lidar=slab[:, ns + 9],
+                    prev_goal_distance=goal_distance)
                 if _fresh_xy is not None:
-                    cols.append(_fresh_xy)
-                env_in = torch.cat(cols, dim=-1).to(self.dtype)
-                physics, slab = engine.step_batch(
-                    model, physics, base_model=base_model,
-                    with_env=self._env_statics(), env_in=env_in,
-                    with_fresh=(self._fresh_statics()
-                                if _fresh_xy is not None else None))
-            else:
-                physics = engine.step_batch(model, physics,
-                                            base_model=base_model)
-        if slab is None:
-            obs_src = states.physics if cfg.reference_delayed_obs else physics
-            geo_obs = self._geo_eval(states.goal_cell,
-                                     obs_src.xpos[:, 1, :2])
-            obs, metrics = self._observe_batch(
-                obs_src, states.odom_ref, states.goal, geo_vec=geo_obs,
-                models=models, base_model=base_model)
-            new = self._outcome(
-                states, physics, obs, metrics,
-                self._geo_delta(states.physics, physics, states.goal_cell,
-                                None if cfg.reference_delayed_obs
-                                else geo_obs))
-            return (new, None) if _fresh_xy is not None else new
-        ns = self.model.nsite
-        obs = slab[:, :ns + 7]
-        # the compass and the shaping ride outside the kernel, on one
-        # packed sample at the stepped chassis xy
-        geo_new = self._geo_eval(states.goal_cell, physics.xpos[:, 1, :2])
-        if cfg.goal_compass:
-            goal_vec = states.goal - (physics.xpos[:, 1, :2]
-                                      - states.odom_ref.position[:, :2])
-            obs = torch.cat([obs, self._compass_from(
-                None if geo_new is None else geo_new[..., 1:3],
-                slab[:, ns + 2], goal_vec)], dim=-1)
-        reward = slab[:, ns + 7] + self._geo_delta(
-            states.physics, physics, states.goal_cell, geo_new)
-        terminated = slab[:, ns + 11] > 0.5
-        steps = states.steps + 1
-        truncated = (steps >= cfg.max_episode_steps) & ~terminated
-        goal_distance = slab[:, ns + 8]
-        new = states.replace(
-            physics=physics, obs=obs, final_obs=obs,
-            reward=reward, steps=steps, terminated=terminated,
-            truncated=truncated, done=terminated | truncated,
-            goal_distance=goal_distance, collision=slab[:, ns + 10] > 0.5,
-            min_lidar=slab[:, ns + 9], prev_goal_distance=goal_distance)
-        if _fresh_xy is not None:
-            return new, slab[:, ns + 12:]
-        return new
+                    return new, slab[:, ns + 12:]
+                return new
 
     def step_autoreset_batch(self, states: EnvState, actions,
                              fresh: Optional[EnvState] = None, models=None,
@@ -553,51 +567,64 @@ class AckermannEnv:
         whole fresh batch through K2 with the base model, as the JAX
         package's per-env reset does, then selected by ``done``.
         ``models``/``base_model``: domain randomization, as in
-        :meth:`step_batch` (resets use the base model)."""
-        B = states.steps.shape[0]
-        cfg = self.config
-        if cfg.reference_delayed_obs:
-            st = self.step_batch(states, actions, models=models,
-                                 base_model=base_model)
-            fresh = self.reset(core=fresh if fresh is not None
-                               else self.reset_core(B))
-            merged = _map2(lambda f, s: select_done(st.done, f, s), fresh, st)
-            return merged.replace(**_outcome_fields(st))
-        if fresh is None:
-            fresh = self.reset_core(B)
-        if cfg.spawn_heading_noise:
-            st = self.step_batch(states, actions, models=models,
-                                 base_model=base_model)
-            fresh_lidar = None
-        else:
-            st, fresh_lidar = self.step_batch(
-                states, actions, models=models, base_model=base_model,
-                _fresh_xy=fresh.physics.xpos[:, 1, :2])
-        done = st.done
-        merged = _map2(lambda f, s: select_done(done, f, s), fresh, st)
-        keep = _outcome_fields(st)
-        if fresh_lidar is None:
-            obs, _ = self._observe_batch(
-                merged.physics, merged.odom_ref, merged.goal,
-                geo_vec=self._geo_eval(merged.goal_cell,
-                                       merged.physics.xpos[:, 1, :2]),
-                models=models, base_model=base_model)
-            return merged.replace(obs=obs, **keep)
-        g = fresh.goal
-        heading0 = torch.full((B,), self._heading0, dtype=self.dtype,
-                              device=self.device)
-        ang = torch.atan2(g[:, 1], g[:, 0]) - self._heading0
-        ang = torch.atan2(torch.sin(ang), torch.cos(ang))
-        cols = [fresh_lidar,
-                torch.zeros((B, 2), dtype=self.dtype, device=self.device),
-                heading0[:, None], g, fresh.prev_goal_distance[:, None],
-                ang[:, None]]
-        if cfg.goal_compass:
-            cols.append(self._compass(fresh.physics.xpos[:, 1, :2], heading0,
-                                      fresh.goal_cell, g))
-        fresh_obs = torch.cat(cols, dim=-1)
-        return merged.replace(
-            obs=torch.where(done[:, None], fresh_obs, st.obs), **keep)
+        :meth:`step_batch` (resets use the base model).
+
+        Spans (``utils/profiler.py``): ``envs.step_autoreset_batch`` over
+        the whole step, ``envs.step_batch`` (its ``envs.outcome`` after
+        K1), ``envs.merge`` (the ``done`` select) and ``envs.fresh_obs``
+        (the continuation's observation)."""
+        with profiler.span("envs.step_autoreset_batch"):
+            B = states.steps.shape[0]
+            cfg = self.config
+            if cfg.reference_delayed_obs:
+                st = self.step_batch(states, actions, models=models,
+                                     base_model=base_model)
+                fresh = self.reset(core=fresh if fresh is not None
+                                   else self.reset_core(B))
+                with profiler.span("envs.merge"):
+                    merged = _map2(lambda f, s: select_done(st.done, f, s),
+                                   fresh, st)
+                    return merged.replace(**_outcome_fields(st))
+            if fresh is None:
+                fresh = self.reset_core(B)
+            if cfg.spawn_heading_noise:
+                st = self.step_batch(states, actions, models=models,
+                                     base_model=base_model)
+                fresh_lidar = None
+            else:
+                st, fresh_lidar = self.step_batch(
+                    states, actions, models=models, base_model=base_model,
+                    _fresh_xy=fresh.physics.xpos[:, 1, :2])
+            done = st.done
+            with profiler.span("envs.merge"):
+                merged = _map2(lambda f, s: select_done(done, f, s), fresh,
+                               st)
+                keep = _outcome_fields(st)
+            with profiler.span("envs.fresh_obs"):
+                if fresh_lidar is None:
+                    obs, _ = self._observe_batch(
+                        merged.physics, merged.odom_ref, merged.goal,
+                        geo_vec=self._geo_eval(merged.goal_cell,
+                                               merged.physics.xpos[:, 1, :2]),
+                        models=models, base_model=base_model)
+                    return merged.replace(obs=obs, **keep)
+                g = fresh.goal
+                heading0 = torch.full((B,), self._heading0, dtype=self.dtype,
+                                      device=self.device)
+                ang = torch.atan2(g[:, 1], g[:, 0]) - self._heading0
+                ang = torch.atan2(torch.sin(ang), torch.cos(ang))
+                cols = [fresh_lidar,
+                        torch.zeros((B, 2), dtype=self.dtype,
+                                    device=self.device),
+                        heading0[:, None], g,
+                        fresh.prev_goal_distance[:, None], ang[:, None]]
+                if cfg.goal_compass:
+                    cols.append(self._compass(fresh.physics.xpos[:, 1, :2],
+                                              heading0, fresh.goal_cell, g))
+                fresh_obs = torch.cat(cols, dim=-1)
+                return merged.replace(
+                    obs=torch.where(done[:, None], fresh_obs, st.obs),
+                    **keep)
 
     # ------------------------------------------------------------------- obs
     def _scan_batch(self, physics: State, models=None, base_model=None):

@@ -76,7 +76,8 @@ def _nvcc() -> str:
 
 def build(sources=SOURCES) -> dict:
     """Compile every missing library, one nvcc per source in parallel.
-    Returns {source: nvcc's output (ptxas register and spill report)}."""
+    Returns {source: nvcc's output (ptxas register and spill report)}.
+    ``compiles`` counts the nvcc runs started."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     logs, procs = {}, {}
     try:
@@ -87,6 +88,7 @@ def build(sources=SOURCES) -> dict:
                 logs[src] = log.read_text() if log.exists() else ""
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            build.compiles += 1
             cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-o",
                    str(tmp), str(CSRC / src)]
             procs[src] = (subprocess.Popen(
@@ -107,8 +109,12 @@ def build(sources=SOURCES) -> dict:
     return logs
 
 
+build.compiles = 0
+
+
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if missing."""
+    """The loaded library of one source, built first if missing.
+    ``loads`` counts the libraries loaded."""
     path = library_path(source)
     lib = _LOADED.get(path)
     if lib is None:
@@ -116,12 +122,17 @@ def load(source: str) -> ctypes.CDLL:
             build((source,))
         lib = ctypes.CDLL(str(path))
         _LOADED[path] = lib
+        load.loads += 1
     return lib
+
+
+load.loads = 0
 
 
 def upload_constants(lib, prefix: str, blob) -> None:
     """Copy a model's constant block into the library's ``__constant__``
-    memory, unless it is the block already there."""
+    memory, unless it is the block already there.  ``uploads`` counts the
+    blocks copied."""
     if getattr(lib, "current_constants", None) is blob:
         return
     size = getattr(lib, f"{prefix}_const_size")
@@ -137,3 +148,7 @@ def upload_constants(lib, prefix: str, blob) -> None:
     if err != 0:
         raise RuntimeError(f"{prefix}_set_constants failed: CUDA error {err}")
     lib.current_constants = blob
+    upload_constants.uploads += 1
+
+
+upload_constants.uploads = 0

@@ -51,6 +51,7 @@ from mujoco_playground_tpu_torch.ops.newton import (_is0, cholesky_solve_lanes,
 from mujoco_playground_tpu_torch.physics.collision import TOPK_W
 from mujoco_playground_tpu_torch.physics.constraint import CONE, EQ, FRICTION
 from mujoco_playground_tpu_torch.physics.model import JNT_FREE, JNT_HINGE
+from mujoco_playground_tpu_torch.utils import profiler
 
 INF = 1e30   # running-min sentinel of the nearest-box and deepest-vertex picks
 
@@ -1344,7 +1345,8 @@ def step_fused(model, qpos, qvel, ctrl, warmstart, env_in=None,
     tensors launch ``csrc/step_kernel.cu`` (K1e: ``step_kernel_dr.cu``).
     Only the flag sets of ``K1_VARIANTS`` are accepted, on either device.
     ``launches`` counts K1 launches, ``launches_dr`` K1e launches, and
-    ``by_variant`` both by their ``K1_VARIANTS`` key."""
+    ``by_variant`` both by their ``K1_VARIANTS`` key.  The span ``ops.k1``
+    times the card's launch path (``launch_k1``)."""
     key = check_variant(env_statics, fresh_statics, ws_compare, dr_params)
     if qpos.device.type == "cpu":
         return step_plain(model, qpos, qvel, ctrl, warmstart, env_in,
@@ -1352,7 +1354,7 @@ def step_fused(model, qpos, qvel, ctrl, warmstart, env_in=None,
     if qpos.device.type != "cuda":
         raise ValueError(f"step_fused: unsupported device {qpos.device}")
     src = "step_kernel.cu" if dr_params is None else "step_kernel_dr.cu"
-    with torch.cuda.device(qpos.device):
+    with profiler.span("ops.k1"), torch.cuda.device(qpos.device):
         out = launch_k1(build.load(src), model, qpos, qvel, ctrl, warmstart,
                         env_in, env_statics, fresh_statics, ws_compare,
                         torch.cuda.current_stream(qpos.device).cuda_stream,

@@ -12,6 +12,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from mujoco_playground_tpu_torch.rl import ppo
+from mujoco_playground_tpu_torch.utils import profiler
 
 
 @torch.no_grad()
@@ -64,14 +65,15 @@ def deterministic_policy(network, norm: Optional[ppo.NormState] = None):
     with: pass it for (and ONLY for) policies trained with
     config.normalize_obs.  A reward-only NormState still carries obs
     statistics; feeding scaled obs to a policy trained on raw ones would
-    corrupt the eval.
+    corrupt the eval.  Each call is the span ``rl.policy``.
     """
     @torch.no_grad()
     def policy_fn(obs):
-        if norm is not None:
-            obs = ppo.normalize_obs(norm, obs)
-        mean, _, _ = network(obs)
-        return torch.clamp(mean, -1.0, 1.0)
+        with profiler.span("rl.policy"):
+            if norm is not None:
+                obs = ppo.normalize_obs(norm, obs)
+            mean, _, _ = network(obs)
+            return torch.clamp(mean, -1.0, 1.0)
     return policy_fn
 
 

@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from mujoco_playground_tpu_torch.utils import profiler
+
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
 _ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
 
@@ -102,7 +104,8 @@ class ActorCritic(nn.Module):
     without its last axis.  The weights are drawn on the CPU from
     ``generator`` (a CPU ``torch.Generator``), so that a run on the card and
     one on the CPU start from the same weights; move the module with
-    ``.to(device)``."""
+    ``.to(device)``.  The spans ``rl.actor`` and ``rl.critic`` mark the two
+    towers with their heads."""
 
     def __init__(self, obs_size: int, action_size: int = 2,
                  hidden: Sequence[int] = (64, 64), activation: str = "tanh",
@@ -116,8 +119,10 @@ class ActorCritic(nn.Module):
         self.log_std = nn.Parameter(torch.zeros(action_size))
 
     def forward(self, obs):
-        mean = self.action_head(self.pi_tower(obs))
-        value = self.value_head(self.vf_tower(obs))
+        with profiler.span("rl.actor"):
+            mean = self.action_head(self.pi_tower(obs))
+        with profiler.span("rl.critic"):
+            value = self.value_head(self.vf_tower(obs))
         log_std = torch.clamp(self.log_std, LOG_STD_MIN, LOG_STD_MAX)
         return mean, log_std, value[..., 0]
 

@@ -41,6 +41,7 @@ import torch
 from mujoco_playground_tpu_torch.parallel import mesh
 from mujoco_playground_tpu_torch.rl import networks
 from mujoco_playground_tpu_torch.rl.config import RLConfig
+from mujoco_playground_tpu_torch.utils import profiler
 
 # the fields of a transition the rollout stores, flattened to (T*B, ...)
 TRANSITION_FIELDS = ("obs", "action", "logp", "value", "reward",
@@ -70,8 +71,9 @@ def init_norm_state(obs_size: int, num_envs: int, device=None) -> NormState:
 
 
 def normalize_obs(norm: NormState, obs):
-    return torch.clamp((obs - norm.obs_mean)
-                       / torch.sqrt(norm.obs_var + 1e-8), -10.0, 10.0)
+    with profiler.span("rl.normalize_obs"):
+        return torch.clamp((obs - norm.obs_mean)
+                           / torch.sqrt(norm.obs_var + 1e-8), -10.0, 10.0)
 
 
 def normalize_reward(norm: NormState, reward):

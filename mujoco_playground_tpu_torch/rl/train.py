@@ -397,7 +397,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", default="rl_logs")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a torch.profiler trace of one train step "
-                        "into DIR (a Chrome trace, trace.json)")
+                        "into DIR (a Chrome trace, trace.json), with the "
+                        "port's spans (the env step's stages, K1's launch, "
+                        "the policy's towers) as named ranges")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the kernels' plain PyTorch versions)")

@@ -19,11 +19,10 @@ Tolerances (float32 unless said otherwise):
   the parameters' largest magnitude;
 * the committed flagship policy, carried across, acts as JAX's on 256
   seeded observations, 1e-5;
-* ``compute_episode_stats`` and ``StepTimer`` exactly (the same float64
-  arithmetic on the host).
+* ``compute_episode_stats`` exactly (the same float64 arithmetic on the
+  host).
 """
 import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -37,11 +36,9 @@ from mujoco_playground_tpu.rl import networks as jax_networks
 from mujoco_playground_tpu.rl import ppo as jax_ppo
 from mujoco_playground_tpu.rl import utils as jax_utils
 from mujoco_playground_tpu.rl.config import RLConfig as JaxRLConfig
-from mujoco_playground_tpu.utils import profiler as jax_profiler
 from mujoco_playground_tpu_torch import interop
 from mujoco_playground_tpu_torch.rl import evaluate, networks, ppo, utils
 from mujoco_playground_tpu_torch.rl.config import RLConfig
-from mujoco_playground_tpu_torch.utils import profiler
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "rl_logs", "flagship", "ppo",
@@ -422,16 +419,3 @@ def test_episode_stats_match_jax():
     assert got == jax_utils.compute_episode_stats(returns, lengths)
     assert got["std_return"] == float(np.std(returns, ddof=0))
 
-
-def test_step_timer_matches_jax(monkeypatch):
-    """The rolling env-steps/s counter on one fake clock: 0 at the first
-    tick, then steps over the interval, smoothed by the EMA."""
-    now = [100.0]
-    monkeypatch.setattr(time, "time", lambda: now[0])
-    got, want = profiler.StepTimer(4096), jax_profiler.StepTimer(4096)
-    assert got.tick() == want.tick() == 0.0
-    now[0] += 0.5
-    assert got.tick() == want.tick() == 4096 / 0.5
-    for dt in np.random.default_rng(16).uniform(0.1, 2.0, 10):
-        now[0] += float(dt)
-        assert got.tick() == want.tick()
